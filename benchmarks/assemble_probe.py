@@ -1,8 +1,7 @@
-"""Micro-probe: which piece of the dense H assembly is slow on TPU.
+"""Micro-probe: which piece of the dense H assembly is slow on the device.
 
 Variants, each timed as a REPS-chained jitted program (large arrays passed
-as ARGUMENTS — closed-over concrete arrays become program literals and
-blow the remote-compile request):
+as ARGUMENTS — closed-over concrete arrays become program literals):
 
   onehot      build the (N, E) selection matrices
   d_einsum    block-diagonal accumulation via einsum('pe,eab->pab')

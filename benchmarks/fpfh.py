@@ -1,4 +1,4 @@
-"""On-chip timing of the FPFH global-registration path.
+"""Device timing of the FPFH global-registration path.
 
 The reference treats `fpfh` as a selectable but non-recommended method
 (run_scanmatcher.py:166-171); it ships here with full parity
@@ -11,7 +11,7 @@ The descriptor stage is O(N^2) neighborhood sweeps twice (SPFH then
 neighbor-weighted FPFH), so per-pair cost is dominated by four (N,N)
 passes; num_hypotheses only affects the (cheap) batched RANSAC scoring.
 
-Usage (TPU host):  python benchmarks/fpfh_tpu.py [CAP] [REPS]
+Usage:  python benchmarks/fpfh.py [CAP] [REPS]
 Prints one JSON line.
 """
 
@@ -39,12 +39,9 @@ def main():
         GlobalRegParams, global_registration)
     from lidar_slam_arvc_tpu.utils import synthetic
     from lidar_slam_arvc_tpu.utils.profiling import (
-        CompileCounter, enable_compilation_cache)
+        CompileCounter, setup_compile_cache)
 
-    cache = os.environ.get("BENCH_COMPILE_CACHE",
-                           os.path.expanduser("~/.cache/lidar_slam_xla"))
-    if cache:
-        enable_compilation_cache(cache)
+    setup_compile_cache()
 
     rng = np.random.default_rng(0)
     # boxes give FPFH discriminative corner/edge geometry (synthetic.py)

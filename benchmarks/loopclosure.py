@@ -1,7 +1,6 @@
-"""Reference-scale loop closing on the real TPU chip (stage 2).
+"""Reference-scale loop closing (stage 2) on the local device.
 
-The r1-r3 loop-closure evidence was a 60-scan toy circuit.  This benchmark
-runs the regime reference run_graphSLAM.py:153,168 targets: 200+ scans,
+This benchmark runs the regime reference run_graphSLAM.py:153,168 targets: 200+ scans,
 radius_threshold 2-7 m, the FULL-RESOLUTION keyframe store (voxel None,
 run_graphSLAM.py:224) at the default capacities (raw 65536 / capacity
 16384), triangle-consistency loop closing against hundreds of candidates.
@@ -12,9 +11,9 @@ neighborhood, so genuine closures exist; scans carry ~LC_POINTS points
 accepted, and the ATE improvement closures give over open-loop scan
 matching with deliberately drifted odometry.
 
-Usage (TPU host):  python benchmarks/loopclosure_tpu.py
-Env: LC_SCANS (default 220), LC_POINTS (20000), LC_RADIUS (outer circuit
-radius, default 16 m), LC_REPS.
+Usage:  python benchmarks/loopclosure.py
+Env: LC_SCANS (default 220), LC_POINTS (20000); LC_CAP_RAW / LC_CAP
+shrink the capacities for smoke tests on the CPU (LC_CPU=1).
 """
 
 import json
@@ -29,54 +28,35 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 N_SCANS = int(os.environ.get("LC_SCANS", 220))
 SCAN_POINTS = int(os.environ.get("LC_POINTS", 20000))
-RADIUS = float(os.environ.get("LC_RADIUS", 16.0))
-# CPU smoke-test shrinkers; leave unset on TPU for the default capacities
+# CPU smoke-test shrinkers; leave unset for the default capacities
 CAP_RAW = int(os.environ.get("LC_CAP_RAW", 65536))
 CAP = int(os.environ.get("LC_CAP", 16384))
-COMPILE_CACHE = os.environ.get("BENCH_COMPILE_CACHE",
-                               os.path.expanduser("~/.cache/lidar_slam_xla"))
 
 
 def main():
     if os.environ.get("LC_CPU") == "1":     # smoke-testing on the dev box
         import jax
         jax.config.update("jax_platforms", "cpu")
-    from lidar_slam_arvc_tpu.io.euroc import EurocDataset
+    from lidar_slam_arvc_tpu.io.formats import dump_yaml, load_yaml
     from lidar_slam_arvc_tpu.pipeline.graphslam import run_graphslam
     from lidar_slam_arvc_tpu.pipeline.scanmatcher import run_scanmatcher
     from lidar_slam_arvc_tpu.utils import synthetic
     from lidar_slam_arvc_tpu.utils.config import IcpConfig
     from lidar_slam_arvc_tpu.utils.metrics import ate
     from lidar_slam_arvc_tpu.utils.profiling import (
-        CompileCounter, enable_compilation_cache)
+        CompileCounter, setup_compile_cache)
 
-    if COMPILE_CACHE:
-        enable_compilation_cache(COMPILE_CACHE)
+    setup_compile_cache()
 
-    d = os.environ.get("LC_DIR") or tempfile.mkdtemp(prefix="lc_tpu_")
+    d = os.environ.get("LC_DIR") or tempfile.mkdtemp(prefix="lc_")
     if not os.path.exists(os.path.join(d, "robot0", "lidar", "data.csv")):
-        info = synthetic.make_dataset(
-            d, n_scans=N_SCANS, seed=11, radius=RADIUS,
-            scan_points=SCAN_POINTS, max_range=25.0,
-            # no GPS anchors: closures are the only drift correction, so
-            # the ATE delta isolates the loop-closure path
-            with_gps=False,
-            world_kwargs={"n_ground": 60000, "n_pillars": 120,
-                          "pillar_pts": 500},
-            scanmatcher_params={"voxel_size": None, "delta_time": 1.0,
-                                "method": "icppointplane",
-                                "start_index": 0},
-            slam_params={"perform_loop_closing": True,
-                         # reference run_graphSLAM.py:153,168 regime
-                         "radius_threshold": 7.0,
-                         "distance_backwards": 7.0,
-                         "skip_loop_closing": 8,
-                         "number_of_triplets_loop_closing": 6,
-                         "skip_optimization": 8})
+        # no GPS anchors: closures are the only drift correction, so the
+        # ATE delta isolates the loop-closure path
+        info = synthetic.make_outdoor_loop_dataset(
+            d, n_scans=N_SCANS, scan_points=SCAN_POINTS, with_gps=False)
         np.save(f"{d}/T_gt.npy", info["T_gt"])
     T_gt = np.load(f"{d}/T_gt.npy")
-    print(f"dataset: {d} ({N_SCANS} scans x {SCAN_POINTS} pts, "
-          f"circuit radius {RADIUS} m)", flush=True)
+    print(f"dataset: {d} ({N_SCANS} scans x {SCAN_POINTS} pts)", flush=True)
 
     cfg = IcpConfig(raw_capacity=CAP_RAW, capacity=CAP)
     # defaults: capacities 65536/16384, voxel None — the reference regime
@@ -95,7 +75,6 @@ def main():
                               preprocessed=out_sm.get("preprocessed"))
         t2 = time.time()
 
-    euroc = EurocDataset(d)
     with open(f"{d}/robot0/viz/graphslam_profile.json") as f:
         prof = json.load(f)
     with open(f"{d}/robot0/viz/scanmatcher_profile.json") as f:
@@ -105,17 +84,13 @@ def main():
     # closures buy — the graph also fuses the (drifty) odometry edges at
     # the reference's equal SM/ODO xyz sigmas (graphSLAM.py:17,21), so
     # comparing against the scanmatcher ATE alone conflates the two.
-    import yaml
     ypath = f"{d}/robot0/slam_parameters.yaml"
-    with open(ypath) as fy:
-        slam_params = yaml.safe_load(fy)
+    slam_params = load_yaml(ypath)
     slam_params["perform_loop_closing"] = False
-    with open(ypath, "w") as fy:
-        yaml.safe_dump(slam_params, fy)
+    dump_yaml(slam_params, ypath)
     out_nl = run_graphslam(d, cfg=cfg, progress=False)
     slam_params["perform_loop_closing"] = True
-    with open(ypath, "w") as fy:
-        yaml.safe_dump(slam_params, fy)
+    dump_yaml(slam_params, ypath)
 
     e_sm = ate(out_sm["global"], T_gt)["rmse"]
     e_slam = ate(np.asarray(out_g["solution"]), T_gt)["rmse"]

@@ -1,12 +1,16 @@
 """MULTI-PROCESS multi-host validation of the distributed pipeline (CPU/gloo).
 
+A CPU-only harness: every process runs on virtual CPU devices, and it
+needs no accelerator.  One process drives all cards of a GPU host, so the
+multi-GPU path is checked by ``chip_smoke.py --devices 4`` instead.
+
 The virtual 8-device mesh (tests/conftest.py) proves sharding numerics but
 runs in ONE process — it cannot catch multi-controller bugs (non-addressable
 shards, per-host IO, process_allgather, jax.distributed bring-up).  This
 script runs the REAL multi-host code path: MH_PROCS OS processes,
 MH_LOCAL_DEVICES virtual CPU devices each, joined by jax.distributed over
-localhost (Gloo collectives — the same JAX machinery that rides ICI/DCN on
-a TPU pod):
+localhost (Gloo collectives — the same JAX machinery a multi-host
+accelerator job uses):
 
   1. parallel.multihost.initialize           (jax.distributed bring-up)
   2. run_scanmatcher(directory) — THE REAL CLI STAGE-1 ENTRY POINT — which

@@ -1,9 +1,8 @@
 """Weak-scaling harness for the mesh-sharded scan-matching stage.
 
-BASELINE.md's third north-star row (>=80% scaling efficiency to N hosts)
-cannot be measured in this environment (one real TPU chip); this harness is
-the measurement READY TO RUN on real multi-device hardware, and executes
-today on the virtual CPU mesh to validate the methodology end-to-end.
+BASELINE.md's third north-star row (>=80% scaling efficiency to N devices)
+is measured by this harness on real multi-device hardware; it also runs on
+the virtual CPU mesh to validate the methodology end-to-end.
 
 Weak scaling: each device gets the same number of scan pairs (PAIRS_PER_DEV),
 so ideal scaling keeps wall time flat as devices grow.  Efficiency(D) =
@@ -67,7 +66,7 @@ def main():
                                      max_points=CAP)
         c = cl.from_numpy(scan, CAP)
         c = cl.voxel_downsample(c, 0.2)
-        return cl.estimate_normals(c, 0.5, impl="xla")
+        return cl.estimate_normals(c, 0.5)
 
     clouds = [prep(i) for i in range(n_scans)]
     points = jnp.stack([c.points for c in clouds])
@@ -137,13 +136,13 @@ def main():
             min(1.0, os.cpu_count() / results[-1]["devices"]), 3)
 
     # --- communication/compute model for projecting real-hardware scaling
-    # (BASELINE.md >=80% north star; this environment has one chip).
+    # (BASELINE.md >=80% north star).
     # Sharded stage 1 communicates exactly ONE scan per device per stage
     # (the ppermute halo: points f32x3 + normals f32x3 + mask bool) plus the
     # per-pair result allgather (4x4 f32 + 2 scalars).  Efficiency(D) =
     # compute / (compute + comm) with compute = pairs_per_device x the
-    # MEASURED single-chip per-pair ICP time (CLAUDE.md r3 fit: ~0.4 ms/pair
-    # marginal on TPU v5e at capacity 8192) — both terms scale per device,
+    # single-device per-pair ICP time (WS_COMPUTE_MS_PER_PAIR; not
+    # measured on the GPU yet) — both terms scale per device,
     # so the projection is D-independent until the allgather's log(D) term
     # matters.  Override via WS_COMPUTE_MS_PER_PAIR / WS_ICI_BYTES_PER_S.
     halo_bytes = CAP * (3 * 4 + 3 * 4 + 1)

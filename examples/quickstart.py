@@ -26,8 +26,8 @@ def main():
     print(f"dataset directory: {directory}")
 
     import jax
-    on_tpu = jax.default_backend() == "tpu"
-    n_scans, pts, cap_raw, cap = ((40, 8000, 16384, 8192) if on_tpu
+    on_gpu = jax.default_backend() == "gpu"
+    n_scans, pts, cap_raw, cap = ((40, 8000, 16384, 8192) if on_gpu
                                   else (24, 4000, 8192, 4096))
     info = synthetic.make_dataset(
         directory, n_scans=n_scans, seed=0, radius=10.0, scan_points=pts,

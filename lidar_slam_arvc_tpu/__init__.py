@@ -1,11 +1,12 @@
-"""lidar_slam_arvc_tpu — a TPU-native LiDAR SLAM framework.
+"""lidar_slam_arvc_tpu — a LiDAR SLAM framework for accelerators, in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
 JudithV/LIDAR_SLAM_ARVC reference pipeline (EUROC/ASL ingestion, keyframe
 management, ICP scan-matching seeded by odometry, radius-gated loop closing
 with triangle consistency, and SE(3) pose-graph optimization), built for
-TPU hardware: fixed-shape padded tensors, matmul-based neighbor search on
-the MXU, batched registration over device meshes, and a batch Gauss-Newton /
+accelerators: fixed-shape padded tensors, exact brute-force neighbor search
+(fused Pallas kernels on CUDA GPUs), batched registration over device
+meshes, and a batch Gauss-Newton /
 Levenberg-Marquardt pose-graph solver replacing incremental ISAM2.
 
 Subpackages
@@ -13,7 +14,7 @@ Subpackages
 geom          SO(3)/SE(3) algebra (quaternions wxyz, Euler XYZ, exp/log maps)
 io            EUROC dataset layer: PCD parsing, CSV schemas, YAML configs, UTM
 cloud         point-cloud ops: crop, voxel downsample, normals, ground plane
-ops           low-level TPU kernels (tiled nearest neighbor, 3x3 eigen)
+ops           low-level kernels (nearest neighbor, ball moments, 3x3 eigen)
 registration  ICP point-to-point / point-to-plane / two-planes / FPFH-global
 graph         factor-graph construction and GN/LM solver on SE(3)
 loop          loop-closure candidate search and triangle consistency gating

@@ -1,13 +1,13 @@
-"""FPFH (Fast Point Feature Histogram) descriptors, batched on TPU.
+"""FPFH (Fast Point Feature Histogram) descriptors, batched on device.
 
 Replaces Open3D's C++ ``compute_fpfh_feature`` (reference
 keyframe.py:227-229): 33-dim histograms (11 bins x 3 Darboux angles) used to
 seed global registration.
 
-TPU formulation (no neighbor lists): both SPFH passes stream over target
+Formulation (no neighbor lists): both SPFH passes stream over target
 tiles.  Pass 1 accumulates the 33 per-angle-bin counts with masked
-reductions on the VPU; pass 2 (the 1/d-weighted neighbor mixing) is a
-masked (Q,T)x(T,33) matmul on the MXU.  Exact over the epsilon-ball (no
+reductions; pass 2 (the 1/d-weighted neighbor mixing) is a masked
+(Q,T)x(T,33) matmul.  Exact over the epsilon-ball (no
 max_nn cap, like cloud.normals).
 """
 

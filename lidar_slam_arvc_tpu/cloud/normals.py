@@ -5,11 +5,11 @@ Replaces Open3D's C++ ``estimate_normals`` with
 184-189): per point, the normal is the smallest-eigenvalue eigenvector of
 the covariance of neighbors within ``radius``.
 
-TPU formulation: neighbor moments (count, sum, sum of outer products) come
-from a fused Pallas sweep (ops.ball_moments_pallas — the (Q,T) weight
-matrix never touches HBM) on TPU, or three masked matmuls
-(ops.radius_accumulate) elsewhere; the eigenvector comes from a
-closed-form symmetric 3x3 solve on the VPU.  The reference's ``max_nn``
+Neighbour moments (count, sum, sum of outer products) come from a fused
+Pallas sweep on the GPU (ops.ball_moments_pallas: the (Q,T) weight matrix
+never reaches device memory) or from three masked matmuls elsewhere
+(ops.radius_accumulate), chosen per device by ops.ball_moments; the
+eigenvector comes from a closed-form symmetric 3x3 solve.  The reference's ``max_nn``
 cap (300) is not applied: at the radii used (0.3-0.5 m on voxelized
 scans) neighborhoods are far below the cap, where the cap exists only to
 bound KD-tree query cost.
@@ -17,12 +17,10 @@ bound KD-tree query cost.
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 
 from lidar_slam_arvc_tpu.cloud.cloud import Cloud
-from lidar_slam_arvc_tpu.ops import (
-    ball_moments_pallas, radius_accumulate, smallest_eigenvector_sym3)
+from lidar_slam_arvc_tpu.ops import ball_moments, smallest_eigenvector_sym3
 
 
 def _cov_from_moments(count, s1, s2):
@@ -53,8 +51,7 @@ def _cov_from_moments(count, s1, s2):
 
 
 def estimate_normals(cloud: Cloud, radius: float,
-                     orient_to_viewpoint: bool = True,
-                     impl: str = "auto") -> Cloud:
+                     orient_to_viewpoint: bool = True) -> Cloud:
     """Returns the cloud with unit ``normals`` filled for valid points.
 
     Points with fewer than 3 ball neighbors (including self) get +z, like
@@ -62,34 +59,9 @@ def estimate_normals(cloud: Cloud, radius: float,
     normal signs are flipped to face the sensor origin — the PCL viewpoint
     convention.  Sign is irrelevant for point-to-plane ICP but essential for
     FPFH descriptors, whose Darboux angles are sign-sensitive.
-
-    ``impl``: 'auto' (Pallas sweep on TPU, XLA matmuls elsewhere),
-    'pallas', 'pallas_interpret' (CPU-debuggable kernel), or 'xla'.
     """
-    if impl == "auto":
-        impl = "pallas" if jax.default_backend() == "tpu" else "xla"
-    if impl in ("pallas", "pallas_interpret"):
-        try:
-            radius = float(radius)  # baked into the kernel (static)
-        except (TypeError, jax.errors.ConcretizationTypeError):
-            # traced radius: only the XLA path supports a dynamic radius
-            impl = "xla"
-
-    if impl in ("pallas", "pallas_interpret"):
-        count, s1, s2 = ball_moments_pallas(
-            cloud.points, cloud.points, cloud.mask, radius,
-            interpret=(impl == "pallas_interpret"), query_mask=cloud.mask)
-        cov = _cov_from_moments(count, s1, s2)
-    elif impl == "xla":
-        count, s1, s2 = radius_accumulate(
-            cloud.points, cloud.points, cloud.mask, radius)
-        # raw moments share the covariance algebra: cov = S2/n - m m^T,
-        # with the mean taken about the raw origin instead of the query
-        cov = _cov_from_moments(count, s1, s2)
-    else:
-        raise ValueError(
-            f"unknown impl {impl!r} (auto|pallas|pallas_interpret|xla)")
-
+    count, s1, s2 = ball_moments(cloud.points, cloud.mask, radius)
+    cov = _cov_from_moments(count, s1, s2)
     normals = smallest_eigenvector_sym3(cov)
     if orient_to_viewpoint:
         # flip so n . (viewpoint - p) >= 0 with viewpoint = sensor origin

@@ -5,7 +5,7 @@ two-planes scan-matcher preprocessing (keyframe.py:417-461): a plane is
 RANSAC-fit to the points below a seed height (z < -0.5 m), then the full
 cloud is split into ground / non-ground by point-to-plane distance.
 
-TPU formulation: all RANSAC hypotheses are drawn and scored at once — a
+Formulation: all RANSAC hypotheses are drawn and scored at once — a
 (iters, 3) categorical sample of candidate points, a batched 3-point plane
 construction, and one (iters, N) masked distance matrix for inlier counting.
 No sequential hypothesis loop.

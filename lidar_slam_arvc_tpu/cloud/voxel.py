@@ -1,7 +1,7 @@
 """Voxel-grid downsampling with static shapes.
 
 Replaces Open3D's C++ ``voxel_down_sample`` (reference keyframe.py:108-111):
-each voxel's points are replaced by their centroid.  TPU-native formulation:
+each voxel's points are replaced by their centroid.  Formulation:
 pack voxel indices into one 32-bit key, sort, detect run starts, assign
 compacted output slots with a cumulative sum, and scatter-add coordinates —
 all static-shape device ops (no host compaction).
@@ -35,13 +35,13 @@ def addressable_extent(voxel_size: float) -> tuple[float, float]:
 def _segment_sums_sorted(key_s, vals, valid_s, out_capacity: int):
     """Per-voxel (sums, counts, n_voxels) from KEY-SORTED per-point values.
 
-    TPU-native combine with NO scatter and NO gather: XLA lowers scatter-add
-    with potentially-colliding indices to a serialized update loop, and
-    random-index gathers cost ~0.6 ms/scan at capacity 16384 (measured,
-    benchmarks/voxel_probe.py).  Instead:
+    Combine with NO scatter and NO gather: XLA can lower scatter-add with
+    potentially-colliding indices to a serialized update loop, and
+    random-index gathers are costly at capacity 16384
+    (benchmarks/voxel_probe.py).  Instead:
 
       1. run starts from key changes (first), n_voxels = sum(first),
-      2. REVERSE segmented scan (log2 N shifted masked adds, pure VPU)
+      2. REVERSE segmented scan (log2 N shifted masked adds, elementwise)
          accumulates each run's total at its START row — exact f32, sums
          never cross run boundaries,
       3. a second payload sort with key (first ? position : MAX) compacts
@@ -119,9 +119,8 @@ def voxel_downsample_counted(cloud: Cloud, voxel_size: float,
     # invalid points get the max key so they sort to the end
     key = jnp.where(valid, key, jnp.int32(2 ** 31 - 1))
 
-    # one variadic sort carries the coordinates as payload: measured no
-    # slower than argsort alone on TPU, and saves the three post-sort
-    # gathers (benchmarks/voxel_probe.py)
+    # one variadic sort carries the coordinates as payload, saving the
+    # three post-sort gathers (benchmarks/voxel_probe.py)
     valid_f = valid.astype(pts.dtype)
     key_s, x_s, y_s, z_s, valid_sf = jax.lax.sort(
         (key, pts[:, 0] * valid_f, pts[:, 1] * valid_f,

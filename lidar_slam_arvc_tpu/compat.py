@@ -389,10 +389,12 @@ class SerialRobot:
 # --------------------------------------------------------------------------
 
 def compute_homogeneous_transforms(df_data):
-    """DataFrame with x..z, qw..qz (wxyz!) columns -> list of HM
+    """Table (any column-indexable object: a dict of arrays or a pandas
+    DataFrame) with x..z, qw..qz (wxyz!) columns -> list of HM
     (reference homogeneousmatrix.py:147-167)."""
-    xyz = df_data[["x", "y", "z"]].to_numpy(dtype=np.float64)
-    q = df_data[["qw", "qx", "qy", "qz"]].to_numpy(dtype=np.float64)
+    from lidar_slam_arvc_tpu.io.formats import columns
+    xyz = columns(df_data, ["x", "y", "z"])
+    q = columns(df_data, ["qw", "qx", "qy", "qz"])
     return [HomogeneousMatrix(xyz[i], Quaternion(q[i]))
             for i in range(len(xyz))]
 

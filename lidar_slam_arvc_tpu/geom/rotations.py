@@ -25,8 +25,8 @@ _EPS = 1e-9
 def _hat_sq(w: jax.Array) -> jax.Array:
     """hat(w) @ hat(w) via the closed form w w^T - (w.w) I.
 
-    Avoids a 3x3 matmul, which on TPU would otherwise route through the MXU
-    at reduced (bfloat16) default precision — geometry must stay full f32.
+    Avoids a 3x3 matmul, which an accelerator may run at reduced default
+    precision (bfloat16 or TF32) — geometry must stay full f32.
     """
     outer = w[..., :, None] * w[..., None, :]
     theta2 = jnp.sum(w * w, axis=-1)

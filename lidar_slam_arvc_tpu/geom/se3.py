@@ -23,8 +23,8 @@ from lidar_slam_arvc_tpu.geom.rotations import (
     so3_log,
 )
 
-# Small-geometry einsums must not route through the MXU at reduced
-# (bfloat16) default precision on TPU: pose chains compound the error.
+# Small-geometry einsums must not run at an accelerator's reduced default
+# matmul precision (bfloat16 or TF32): pose chains compound the error.
 _HI = jax.lax.Precision.HIGHEST
 
 
@@ -162,7 +162,7 @@ def global_transforms(relative_T: jax.Array, T0: jax.Array | None = None,
 
     The sequential left-fold of reference homogeneousmatrix.py:184-205 becomes
     an associative prefix product (``lax.associative_scan`` over matmul),
-    which XLA executes in O(log N) batched-matmul depth on the MXU.
+    which XLA executes in O(log N) batched-matmul depth.
     """
     n = relative_T.shape[0]
     if T0 is None:

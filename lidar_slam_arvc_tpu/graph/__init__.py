@@ -8,7 +8,7 @@ Levenberg-Marquardt re-solve: all factor residuals and Jacobian blocks are
 evaluated in one vmapped program, the normal equations assembled by
 scatter-add, and solved by dense Cholesky (small graphs) — numerically
 equivalent to ISAM2's fixpoint for this offline workload, and
-embarrassingly batchable on TPU.
+embarrassingly batchable on device.
 """
 
 from lidar_slam_arvc_tpu.graph.factors import (

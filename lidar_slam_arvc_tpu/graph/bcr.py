@@ -1,4 +1,4 @@
-"""Block cyclic reduction for SPD block-tridiagonal systems (TPU-native).
+"""Block cyclic reduction for SPD block-tridiagonal systems.
 
 The scan-based LDL^T factorization/apply in graph/pcg.py is sequential in
 the pose count: measured at 2048 poses (benchmarks/pcg_probe.py) the
@@ -27,7 +27,8 @@ row per diagonal block, E[N-1] = 0, which makes every boundary case a
 plain slice.
 
 No reference counterpart: GTSAM's elimination is sequential by design;
-this exists because a TPU pays per *dependent step*, not per flop.
+this exists because an accelerator pays per *dependent step*, not per
+flop.
 """
 
 from __future__ import annotations

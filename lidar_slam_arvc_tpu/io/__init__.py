@@ -1,6 +1,7 @@
 """EUROC/ASL dataset layer: PCD files, CSV schemas, YAML configs, UTM.
 
-Host-side (numpy/pandas) code that feeds device buffers.  File formats and
+Host-side numpy code that feeds device buffers (tables and parameter
+files through io.formats, without pandas or PyYAML).  File formats and
 directory layout are byte-compatible with the reference pipeline
 (eurocreader/eurocreader.py) so artifacts interoperate in both directions.
 """

@@ -18,7 +18,9 @@ Differences from the reference implementation (behavior-preserving):
   * nearest-time association is vectorized (searchsorted) instead of the
     O(N*M) python loop in eurocreader.py:128-144;
   * trajectory CSV serialization is batched through geom instead of
-    per-row HomogeneousMatrix objects (eurocreader.py:46-64).
+    per-row HomogeneousMatrix objects (eurocreader.py:46-64);
+  * CSV tables are column -> numpy array dicts (io.formats) instead of
+    pandas DataFrames, written byte-identically to pandas' output.
 """
 
 from __future__ import annotations
@@ -26,13 +28,13 @@ from __future__ import annotations
 import os
 
 import numpy as np
-import pandas as pd
-import yaml
 
 from lidar_slam_arvc_tpu.geom.hostmath import (
     pose_columns_from_transforms_np,
     transforms_from_pose_columns_np,
 )
+from lidar_slam_arvc_tpu.io.formats import (
+    columns, load_yaml, read_csv, take_rows, write_csv)
 
 TRAJECTORY_COLUMNS = ["#timestamp [ns]", "x", "y", "z", "qx", "qy", "qz", "qw"]
 
@@ -48,30 +50,24 @@ class EurocDataset:
     def path(self, relative: str) -> str:
         return self.directory + relative
 
-    def read_csv(self, filename: str) -> pd.DataFrame:
-        return pd.read_csv(self.directory + filename)
+    def read_csv(self, filename: str) -> dict[str, np.ndarray]:
+        return read_csv(self.directory + filename)
 
     def read_transform(self, sensor: str) -> np.ndarray:
         """4x4 extrinsics from robot0/<sensor>/transform.yaml
         (reference eurocreader.py:15-24)."""
-        fn = f"{self.directory}/robot0/{sensor}/transform.yaml"
-        with open(fn) as f:
-            config = yaml.safe_load(f)
+        config = load_yaml(f"{self.directory}/robot0/{sensor}/transform.yaml")
         return np.asarray(config["transform"], dtype=np.float64).reshape(4, 4)
 
     def read_utm_ref(self, gpsname: str = "gps0") -> dict:
         """GPS origin from robot0/<gps>/reference.yaml (eurocreader.py:26-36)."""
-        fn = f"{self.directory}/robot0/{gpsname}/reference.yaml"
-        with open(fn) as f:
-            return yaml.safe_load(f)
+        return load_yaml(f"{self.directory}/robot0/{gpsname}/reference.yaml")
 
     def read_scanmatcher_parameters(self) -> dict:
-        with open(f"{self.directory}/robot0/scanmatcher_parameters.yaml") as f:
-            return yaml.safe_load(f)
+        return load_yaml(f"{self.directory}/robot0/scanmatcher_parameters.yaml")
 
     def read_slam_parameters(self) -> dict:
-        with open(f"{self.directory}/robot0/slam_parameters.yaml") as f:
-            return yaml.safe_load(f)
+        return load_yaml(f"{self.directory}/robot0/slam_parameters.yaml")
 
     def scan_pcd_path(self, scan_time) -> str:
         return f"{self.directory}/robot0/lidar/data/{scan_time}.pcd"
@@ -107,12 +103,19 @@ class EurocDataset:
         return out
 
     @staticmethod
-    def get_df_at_times(df_data: pd.DataFrame, time_list: np.ndarray) -> pd.DataFrame:
-        """Rows of df_data at exactly the given timestamps, in list order
-        (reference eurocreader.py:146-157)."""
-        indexed = df_data.set_index("#timestamp [ns]", drop=False)
-        rows = indexed.loc[np.asarray(time_list)]
-        return rows.reset_index(drop=True)
+    def get_df_at_times(df_data, time_list: np.ndarray) -> dict:
+        """Rows of the table at exactly the given timestamps, in list order
+        (reference eurocreader.py:146-157); KeyError for a missing time."""
+        stamps = np.asarray(df_data["#timestamp [ns]"])
+        want = np.asarray(time_list)
+        order = np.argsort(stamps, kind="stable")
+        pos = np.clip(np.searchsorted(stamps, want, sorter=order), 0,
+                      len(stamps) - 1)
+        rows = order[pos]
+        if not np.array_equal(stamps[rows], want):
+            raise KeyError("timestamps not in the table: "
+                           f"{want[stamps[rows] != want][:5].tolist()}")
+        return take_rows(df_data, rows)
 
     # ---------------------------------------------------------------- writes
 
@@ -121,35 +124,33 @@ class EurocDataset:
         os.makedirs(os.path.dirname(os.path.abspath(full)), exist_ok=True)
         return full
 
-    def save_transforms_as_csv(self, sensor_times, transforms, filename: str) -> pd.DataFrame:
+    def save_transforms_as_csv(self, sensor_times, transforms,
+                               filename: str) -> dict:
         """Write a trajectory CSV with the reference schema
         (eurocreader.py:46-64): index column + timestamp,x,y,z,qx,qy,qz,qw."""
         T = np.asarray(transforms)
         xyz, q = pose_columns_from_transforms_np(T)
-        df = pd.DataFrame({
+        table = {
             "#timestamp [ns]": np.asarray(sensor_times)[: len(T)],
             "x": xyz[:, 0], "y": xyz[:, 1], "z": xyz[:, 2],
             "qx": q[:, 1], "qy": q[:, 2], "qz": q[:, 3], "qw": q[:, 0],
-        })
-        df.to_csv(self._ensure_dir(filename))
-        return df
+        }
+        write_csv(self._ensure_dir(filename), table)
+        return table
 
-    def save_sensor_times_as_csv(self, sensor_times, filename: str) -> pd.DataFrame:
-        df = pd.DataFrame({"#timestamp [ns]": np.asarray(sensor_times)})
-        df.to_csv(self._ensure_dir(filename))
-        return df
+    def save_sensor_times_as_csv(self, sensor_times, filename: str) -> dict:
+        table = {"#timestamp [ns]": np.asarray(sensor_times)}
+        write_csv(self._ensure_dir(filename), table)
+        return table
 
-    def save_loop_closures_as_csv(self, loop_closures, filename: str) -> pd.DataFrame:
+    def save_loop_closures_as_csv(self, loop_closures, filename: str) -> dict:
         """Flatten [[i,j],...] groups into an i,j CSV (eurocreader.py:81-97)."""
-        data = []
-        for group in loop_closures:
-            if group is None:
-                continue
-            for pair in group:
-                data.append({"i": int(pair[0]), "j": int(pair[1])})
-        df = pd.DataFrame(data, columns=["i", "j"])
-        df.to_csv(self._ensure_dir(filename))
-        return df
+        pairs = [(int(p[0]), int(p[1])) for group in loop_closures
+                 if group is not None for p in group]
+        ij = np.asarray(pairs, dtype=np.int64).reshape(-1, 2)
+        table = {"i": ij[:, 0], "j": ij[:, 1]}
+        write_csv(self._ensure_dir(filename), table)
+        return table
 
     # ------------------------------------------------------- trajectory I/O
 
@@ -159,13 +160,12 @@ class EurocDataset:
         return trajectory_from_df(df)
 
 
-def trajectory_from_df(df: pd.DataFrame):
-    """(times, (N,4,4) transforms) from a trajectory dataframe.
+def trajectory_from_df(df):
+    """(times, (N,4,4) transforms) from a trajectory table.
 
     Column convention of reference homogeneousmatrix.py:147-167: position
     x,y,z plus quaternion columns qw,qx,qy,qz (wxyz order in the math)."""
-    times = df["#timestamp [ns]"].to_numpy()
-    xyz = df[["x", "y", "z"]].to_numpy(dtype=np.float64)
-    q = df[["qw", "qx", "qy", "qz"]].to_numpy(dtype=np.float64)
-    T = transforms_from_pose_columns_np(xyz, q)
+    times = np.asarray(df["#timestamp [ns]"])
+    T = transforms_from_pose_columns_np(columns(df, ["x", "y", "z"]),
+                                        columns(df, ["qw", "qx", "qy", "qz"]))
     return times, T

@@ -204,7 +204,7 @@ def ingest_bag(bag_path: str, directory: str,
     reference bagreader.py:17-140 (read_rosbag_data2D/3D + PCD export).
     Returns counts per stream.
     """
-    import pandas as pd
+    from lidar_slam_arvc_tpu.io.formats import dump_yaml, write_csv
     from lidar_slam_arvc_tpu.io.pcd import write_pcd
 
     by_type = {"nav_msgs/Odometry": odom_topic,
@@ -232,34 +232,30 @@ def ingest_bag(bag_path: str, directory: str,
             write_pcd(f"{directory}/robot0/lidar/data/{stamp}.pcd", pts)
             lidar_times.append(stamp)
 
+    def table(rows, names):
+        """CSV columns from parsed messages: stamp_ns -> the EUROC stamp."""
+        return {("#timestamp [ns]" if k == "stamp_ns" else k):
+                np.asarray([r[k] for r in rows]) for k in names}
+
     if lidar_times:
-        pd.DataFrame({"#timestamp [ns]": lidar_times}).to_csv(
-            f"{directory}/robot0/lidar/data.csv", index=False)
+        write_csv(f"{directory}/robot0/lidar/data.csv",
+                  {"#timestamp [ns]": np.asarray(lidar_times)}, index=False)
     if odo_rows:
-        df = pd.DataFrame(odo_rows)
         os.makedirs(f"{directory}/robot0/odom", exist_ok=True)
-        pd.DataFrame({
-            "#timestamp [ns]": df["stamp_ns"],
-            "x": df["x"], "y": df["y"], "z": df["z"],
-            "qx": df["qx"], "qy": df["qy"], "qz": df["qz"],
-            "qw": df["qw"],
-        }).to_csv(f"{directory}/robot0/odom/data.csv", index=False)
+        write_csv(f"{directory}/robot0/odom/data.csv",
+                  table(odo_rows, ["stamp_ns", "x", "y", "z",
+                                   "qx", "qy", "qz", "qw"]), index=False)
     if gps_rows:
-        df = pd.DataFrame(gps_rows)
         os.makedirs(f"{directory}/robot0/gps0", exist_ok=True)
-        pd.DataFrame({
-            "#timestamp [ns]": df["stamp_ns"],
-            "latitude": df["latitude"], "longitude": df["longitude"],
-            "altitude": df["altitude"],
-        }).to_csv(f"{directory}/robot0/gps0/data.csv", index=False)
+        write_csv(f"{directory}/robot0/gps0/data.csv",
+                  table(gps_rows, ["stamp_ns", "latitude", "longitude",
+                                   "altitude"]), index=False)
         # reference.yaml: first valid fix as the UTM offset origin
         # (reference eurocreader.py:26-36 expects it next to the data)
-        import yaml
-        first = df.iloc[0]
-        with open(f"{directory}/robot0/gps0/reference.yaml", "w") as f:
-            yaml.safe_dump({"latitude": float(first["latitude"]),
-                            "longitude": float(first["longitude"]),
-                            "altitude": float(first["altitude"])}, f)
+        first = gps_rows[0]
+        dump_yaml({k: float(first[k])
+                   for k in ("latitude", "longitude", "altitude")},
+                  f"{directory}/robot0/gps0/reference.yaml")
 
     counts = {"odometry": len(odo_rows), "lidar_scans": len(lidar_times),
               "gps_fixes": len(gps_rows), "messages_read": n_msgs,

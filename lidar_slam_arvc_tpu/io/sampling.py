@@ -35,22 +35,22 @@ def sample_odometry(df_odo, deltaxy: float = 0.5, deltath: float = 0.2):
     """Keep odometry rows spaced by >deltaxy meters or >deltath rad of yaw.
 
     Matches reference tools/sampling.py:8-36 (including always keeping row 0
-    and gating on planar distance + yaw).  Returns (times, sampled_df).
+    and gating on planar distance + yaw).  Returns (times, sampled table).
     """
     from lidar_slam_arvc_tpu.geom.hostmath import quat_to_yaw_np
+    from lidar_slam_arvc_tpu.io.formats import columns, take_rows
 
-    xy = df_odo[["x", "y"]].to_numpy(dtype=np.float64)
-    q = df_odo[["qw", "qx", "qy", "qz"]].to_numpy(dtype=np.float64)
-    yaw = quat_to_yaw_np(q)
-    times = df_odo["#timestamp [ns]"].to_numpy()
+    xy = columns(df_odo, ["x", "y"])
+    yaw = quat_to_yaw_np(columns(df_odo, ["qw", "qx", "qy", "qz"]))
+    times = np.asarray(df_odo["#timestamp [ns]"])
 
     keep = [0]
     ref_xy, ref_yaw = xy[0], yaw[0]
-    for i in range(len(df_odo)):
+    for i in range(len(times)):
         dxy = np.linalg.norm(xy[i] - ref_xy)
         dth = abs(yaw[i] - ref_yaw)
         if dxy > deltaxy or dth > deltath:
             keep.append(i)
             ref_xy, ref_yaw = xy[i], yaw[i]
     keep = np.array(keep, dtype=np.int64)
-    return times[keep], df_odo.iloc[keep].reset_index(drop=True)
+    return times[keep], take_rows(df_odo, keep)

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from lidar_slam_arvc_tpu.io.formats import take_rows
+
 # WGS84
 _A = 6378137.0
 _F = 1.0 / 298.257223563
@@ -86,7 +88,7 @@ def latlon_to_utm(lat_deg, lon_deg, zone: int | None = None):
 def gps2utm(df_gps, config_ref: dict, zone: int | None = None):
     """Add x/y (UTM offsets from the dataset reference) + relative altitude.
 
-    Pandas-frame semantics of reference tools/gpsconversions.py:6-41: columns
+    Table semantics of reference tools/gpsconversions.py:6-41: columns
     ``x``/``y`` are UTM easting/northing minus the reference origin's, and
     ``altitude`` is re-based on the reference altitude.  ``zone=None`` derives
     the UTM zone from the reference longitude (pass ``zone=30`` to force the
@@ -100,18 +102,17 @@ def gps2utm(df_gps, config_ref: dict, zone: int | None = None):
 
     ref_x, ref_y = latlon_to_utm(lat_ref, lon_ref, zone=zone)
     x, y = latlon_to_utm(
-        df_gps["latitude"].to_numpy(dtype=np.float64),
-        df_gps["longitude"].to_numpy(dtype=np.float64),
+        np.asarray(df_gps["latitude"], dtype=np.float64),
+        np.asarray(df_gps["longitude"], dtype=np.float64),
         zone=zone,
     )
-    df_gps = df_gps.copy()
-    df_gps["x"] = x - ref_x
-    df_gps["y"] = y - ref_y
-    df_gps["altitude"] = df_gps["altitude"].to_numpy(dtype=np.float64) - alt_ref
-    return df_gps
+    out = {k: np.asarray(v) for k, v in df_gps.items()}
+    out["x"] = x - ref_x
+    out["y"] = y - ref_y
+    out["altitude"] = np.asarray(df_gps["altitude"], np.float64) - alt_ref
+    return out
 
 
 def filter_gps(df_gps):
     """Drop rows with latitude == 0 (reference tools/gpsconversions.py:44-62)."""
-    mask = df_gps["latitude"].to_numpy() != 0.0
-    return df_gps.loc[mask].reset_index(drop=True)
+    return take_rows(df_gps, np.asarray(df_gps["latitude"]) != 0.0)

@@ -1,4 +1,4 @@
-"""KeyframeStore: the KeyFrameManager equivalent, reshaped for TPU.
+"""KeyframeStore: the KeyFrameManager equivalent, reshaped for the device.
 
 The reference's KeyFrameManager (keyframemanager/keyframemanager.py:8-184)
 keeps a Python list of lazy KeyFrame objects, each owning mutable Open3D

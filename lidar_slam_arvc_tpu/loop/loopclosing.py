@@ -9,7 +9,7 @@ current pose; candidate triplets (i, j1, j2) require index separation
 I = T_ij1 * T_j1j2 * T_ij2^-1 is near identity (|pos| < 0.1 m and
 min-branch Euler norm < 0.05 rad, loopclosing.py:119-129).
 
-TPU restructuring: the candidate search is vectorized numpy (host control
+Restructuring: the candidate search is vectorized numpy (host control
 logic), and the per-triplet ICPs — the expensive part the reference runs
 sequentially (loopclosing.py:80-97) — are batched into a single dispatch
 over all sampled triplet pairs, routed through the KeyframeStore's

@@ -5,7 +5,7 @@ Replaces the per-neighborhood eigen decomposition inside Open3D's C++
 vectors are the eigenvectors of the local covariance with smallest
 eigenvalue.  A trigonometric closed form (Smith's algorithm) is used instead
 of an iterative solver so the whole cloud solves as one fused elementwise
-program on the VPU — no lapack, no dynamic loops.
+program — no lapack, no dynamic loops.
 """
 
 from __future__ import annotations

@@ -1,26 +1,27 @@
-"""Pallas TPU kernel for ball-neighborhood moments (normal estimation).
+"""Fused ball-neighbourhood moments for CUDA GPUs (Pallas, Triton route).
 
-Fuses the distance sweep and the moment accumulation of
-ops.nn.radius_accumulate into one kernel: the (Q, T) weight matrix lives
-only in VMEM/registers and the ten per-query accumulators (count, first
-and second moments) carry across target tiles in VMEM scratch.  This is
-the TPU replacement for the neighbor-gathering half of Open3D's C++
-``estimate_normals`` (reference keyframemanager/keyframe.py:160-162) —
-the other half, the smallest-eigenvector solve, stays in ops.eigh3.
+The GPU counterpart of :func:`lidar_slam_arvc_tpu.ops.nn.radius_accumulate`,
+used for normal estimation on the GPU: the neighbour-gathering half of
+Open3D's ``estimate_normals`` (reference keyframemanager/keyframe.py:160-162);
+the smallest-eigenvector half stays in ops.eigh3.
 
-Two deliberate differences from the XLA radius_accumulate path:
+One program handles one block of queries and loops over the target tiles
+inside the kernel; the ten per-query accumulators (count, first and second
+moments) live in registers, and the distance and weight tiles never reach
+device memory.  Before the sweep, XLA computes for every (query block,
+target tile) pair a lower bound on the distance between their bounding
+boxes; the program reads its own row of that table and skips every tile
+whose bound exceeds the radius.  The skip is exact for any point order;
+the order only sets how many tiles are skipped, so both clouds are first
+sorted along a 3-D Morton curve, which makes every block of consecutive
+points spatially compact (a scan read from disk arrives in sensor order,
+where a block spans the whole scan and no tile could be skipped).
 
-  * Layout is transposed like ops.nn_pallas 'vpu_t' — queries on lanes,
-    targets on sublanes — so every reduction (count and the nine moment
-    sums) is a sublane reduction, and the accumulator rows broadcast
-    against (BT, BQ) tiles with no relayout.
-  * Moments are **query-centered**: S1 = sum w (t - q), S2 = sum of the
-    upper triangle of w (t - q)(t - q)^T.  The deltas are already
-    computed for the distance test, the extra products are pure VPU f32,
-    and the covariance  S2/n - m m^T  (m = S1/n) is formed from values of
-    magnitude ~radius instead of ~|scene|, removing the catastrophic
-    cancellation the raw-moment formulation tolerates only at
-    Precision.HIGHEST.
+Moments are query-centred: S1 = sum w (t - q) and S2 = the upper triangle
+of sum w (t - q)(t - q)^T.  The covariance S2/n - m m^T is then formed from
+values of the size of the radius instead of the size of the scene, which
+avoids the cancellation the raw-moment XLA path must guard against with
+``Precision.HIGHEST``.
 """
 
 from __future__ import annotations
@@ -30,152 +31,138 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from lidar_slam_arvc_tpu.ops.nn_pruned import _block_boxes, _box_dist2
+from lidar_slam_arvc_tpu.ops.nn_pallas import _SENT, block_size, pad_to
 
-# Masked targets are moved to this far sentinel (see ops.nn_pallas): their
-# distance to any terrestrial query exceeds ~1.6e15 m^2, so the ball test
-# w = (d2 <= r^2) excludes them with no separate penalty stream.
-_SENT = -4e7
+_BIG = 1e12
 
 
-def _ball_kernel(r2: float, tile_d2_ref, qT_ref, tgt_ref, out_ref, acc):
-    i = pl.program_id(0)
-    j = pl.program_id(1)
+def _morton_order(points: jax.Array, valid: jax.Array) -> jax.Array:
+    """Permutation sorting valid points along a 10-bit-per-axis Morton
+    curve over their bounding box; invalid points go last."""
+    lo = jnp.min(jnp.where(valid[:, None], points, jnp.inf), axis=0)
+    hi = jnp.max(jnp.where(valid[:, None], points, -jnp.inf), axis=0)
+    span = jnp.maximum(hi - lo, 1e-6)
+    cell = jnp.clip((points - lo) / span * 1023.0, 0.0, 1023.0)
+    q = jnp.where(valid[:, None], cell, 0.0).astype(jnp.uint32)
 
-    @pl.when(j == 0)
-    def _():
-        acc[:] = jnp.zeros_like(acc)
+    def spread(v):  # 10 bits -> every third bit of 30
+        v = (v | (v << 16)) & 0x030000FF
+        v = (v | (v << 8)) & 0x0300F00F
+        v = (v | (v << 4)) & 0x030C30C3
+        return (v | (v << 2)) & 0x09249249
 
-    # Tile skip: tile_d2[i, j] lower-bounds every pair distance between
-    # query block i and target block j (axis-aligned bbox gap).  If the
-    # bound exceeds the ball radius no pair in the tile can be a neighbor.
-    # Unlike the NN prune (nn_pruned.py) this is a STATIC radius test, so
-    # correctness never depends on point ordering — ordering only sets the
-    # skip rate, and voxel-downsampled clouds arrive voxel-key-sorted
-    # (spatially compact slabs) for free.
-    @pl.when(tile_d2_ref[i, j] <= r2)
-    def _():
-        # (BT, 1) - (1, BQ) lane-broadcasts: pure VPU, exact f32
-        dx = tgt_ref[:, 0:1] - qT_ref[0:1, :]
-        dy = tgt_ref[:, 1:2] - qT_ref[1:2, :]
-        dz = tgt_ref[:, 2:3] - qT_ref[2:3, :]
-        d2 = dx * dx + dy * dy + dz * dz
-        w = (d2 <= r2).astype(jnp.float32)            # (BT, BQ)
-
-        # Each product tile is consumed by its sublane reduction immediately
-        # so at most ~6 (BT, BQ) temporaries are live (dx/dy/dz/w +
-        # transients); materializing all ten products at once OOMs scoped
-        # VMEM at useful tile sizes.  The extra w*·· recomputations are
-        # single VPU muls.
-        def s(r):
-            return jnp.sum(r, axis=0, keepdims=True)  # (1, BQ)
-
-        sums = jnp.concatenate(
-            [s(w),
-             s(w * dx), s(w * dy), s(w * dz),
-             s(w * (dx * dx)), s(w * (dx * dy)), s(w * (dx * dz)),
-             s(w * (dy * dy)), s(w * (dy * dz)),
-             s(w * (dz * dz)),
-             # pad to the full 16-sublane scratch so the update is a
-             # whole-tile add (no sub-8 sublane slicing)
-             jnp.zeros((6, w.shape[1]), jnp.float32)], axis=0)      # (16,BQ)
-        acc[:] = acc[:] + sums
-
-    @pl.when(j == pl.num_programs(1) - 1)
-    def _():
-        out_ref[:] = acc[:]
+    key = spread(q[:, 0]) | (spread(q[:, 1]) << 1) | (spread(q[:, 2]) << 2)
+    return jnp.argsort(jnp.where(valid, key, jnp.uint32(0xFFFFFFFF)))
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("radius", "query_block", "tgt_block", "interpret"))
+def _block_boxes(points: jax.Array, valid: jax.Array, block: int):
+    """(B, 3) lo / hi per block of ``block`` consecutive points."""
+    n = points.shape[0] // block
+    p = points.reshape(n, block, 3)
+    v = valid.reshape(n, block, 1)
+    lo = jnp.min(jnp.where(v, p, jnp.inf), axis=1)
+    hi = jnp.max(jnp.where(v, p, -jnp.inf), axis=1)
+    return lo, hi
+
+
+def _box_dist2(lo_a, hi_a, lo_b, hi_b):
+    """(A, B) min squared distance between all box pairs (_BIG for empties)."""
+    gap = jnp.maximum(
+        jnp.maximum(lo_b[None, :, :] - hi_a[:, None, :],
+                    lo_a[:, None, :] - hi_b[None, :, :]), 0.0)
+    # an empty block has lo=+inf/hi=-inf: gap=inf, so its bound is _BIG and
+    # the tile is always skipped
+    return jnp.sum(jnp.where(jnp.isfinite(gap), gap, _BIG) ** 2, axis=-1)
+
+
+def _moments_kernel(r2_ref, bound_ref, qx_ref, qy_ref, qz_ref,
+                    tx_ref, ty_ref, tz_ref, *out_refs, tgt_block: int):
+    q = [r[...][:, None] for r in (qx_ref, qy_ref, qz_ref)]
+    r2 = r2_ref[0]
+
+    def accumulate(k, acc):
+        sl = pl.ds(pl.multiple_of(k * tgt_block, tgt_block), tgt_block)
+        dx = tx_ref[sl][None, :] - q[0]
+        dy = ty_ref[sl][None, :] - q[1]
+        dz = tz_ref[sl][None, :] - q[2]
+        w = jnp.where(dx * dx + dy * dy + dz * dz <= r2, 1.0, 0.0)
+        wx, wy, wz = w * dx, w * dy, w * dz
+        terms = (w, wx, wy, wz, wx * dx, wx * dy, wx * dz,
+                 wy * dy, wy * dz, wz * dz)
+        return tuple(a + jnp.sum(t, axis=1) for a, t in zip(acc, terms))
+
+    def body(k, acc):
+        return jax.lax.cond(bound_ref[k] <= r2, accumulate,
+                            lambda _, a: a, k, acc)
+
+    init = (jnp.zeros(q[0].shape[0], jnp.float32),) * 10
+    n_tiles = tx_ref.shape[0] // tgt_block
+    for ref, a in zip(out_refs, jax.lax.fori_loop(0, n_tiles, body, init)):
+        ref[...] = a
+
+
+@functools.partial(jax.jit, static_argnames=(
+    "query_block", "tgt_block", "interpret"))
 def ball_moments_pallas(query: jax.Array, tgt: jax.Array, tgt_mask: jax.Array,
-                        radius: float, query_block: int = 1024,
-                        tgt_block: int = 512, interpret: bool = False,
-                        query_mask: jax.Array | None = None):
-    """Query-centered ball moments for every query point.
+                        radius, query_mask: jax.Array | None = None,
+                        query_block: int = 16, tgt_block: int = 32,
+                        interpret: bool = False):
+    """Query-centred ball moments for every query point.
 
     Args:
-      query: (Q, 3) query points (padded rows produce garbage the caller
-        must gate with its own mask).
-      tgt: (T, 3) candidate neighbors.
-      tgt_mask: (T,) validity; masked rows never count as neighbors.
-      radius: ball radius (static — baked into the kernel).
+      query: (Q, 3) query points (rows outside ``query_mask`` produce
+        values the caller must gate with its own mask).
+      tgt: (T, 3) candidate neighbours.
+      tgt_mask: (T,) validity; masked rows never count as neighbours.
+      radius: ball radius (a Python float or a traced scalar).
       query_mask: (Q,) optional validity; only tightens the per-block
-        bboxes that drive tile skipping (garbage rows widen them).
+        bounding boxes that decide which tiles are skipped.
+      interpret: run in the Pallas interpreter (tests without a GPU).
 
-    Tiles whose block-bbox gap exceeds ``radius`` are skipped inside the
-    kernel (no pair in them can be a neighbor — exact, independent of
-    point order).  Point ORDER sets the skip rate: voxel-downsampled
-    clouds arrive voxel-key-sorted, so consecutive blocks are spatially
-    compact slabs and most tiles skip at LiDAR normal-estimation radii.
+    The default blocks and the 4 warps measured fastest for 16384-point
+    scans at radius 0.3 and 0.5 m on an H100 (PERF.md).
 
-    Block defaults (1024, 512) measured fastest on TPU v5e with tile
-    skipping at voxelized density: 0.58 ms per 8192^2 sweep vs 0.60/0.63
-    at (512, 512)/(512, 1024) and 0.74 at (1024, 1024) — finer target
-    blocks skip a larger fraction of tiles (benchmarks/normals_impl_sweep
-    .py; the XLA raw-moment matmul path measures 1.38-1.46: the MXU
-    absorbs its 42x padding waste, so the fused kernel's win is VMEM
-    traffic + skipping, not FLOPs).
     Returns:
-      (count (Q,), S1 (Q, 3), S2 (Q, 6)) — neighbor count, sums of
+      (count (Q,), S1 (Q, 3), S2 (Q, 6)): neighbour count, sums of
       (t - q) and of the upper triangle (xx,xy,xz,yy,yz,zz) of
-      (t - q)(t - q)^T over neighbors within ``radius`` (self included
+      (t - q)(t - q)^T over neighbours within ``radius`` (self included
       when the query is a valid target, at delta 0).
     """
-    Q = query.shape[0]
-    T = tgt.shape[0]
-    pad_q = (-Q) % query_block
-    pad_t = (-T) % tgt_block
-    q_p = jnp.pad(query, ((0, pad_q), (0, 0)))
-    tgt_p = jnp.pad(tgt, ((0, pad_t), (0, 0)))
-    mask_p = jnp.pad(tgt_mask, (0, pad_t))
+    Q, T = query.shape[0], tgt.shape[0]
+    bq, bt = block_size(Q, query_block), block_size(T, tgt_block)
+    Qp, Tp = pl.cdiv(Q, bq) * bq, pl.cdiv(T, bt) * bt
     if query_mask is None:
-        q_mask_p = jnp.pad(jnp.ones(Q, dtype=bool), (0, pad_q))
-    else:
-        q_mask_p = jnp.pad(query_mask, (0, pad_q))
+        query_mask = jnp.ones(Q, dtype=bool)
+    q_order = _morton_order(query, query_mask)
+    t_order = _morton_order(tgt, tgt_mask)
+    q_p = pad_to(query[q_order], Qp, 0.0)
+    q_valid = pad_to(query_mask[q_order], Qp, False)
+    t_valid = pad_to(tgt_mask[t_order], Tp, False)
+    t_p = jnp.where(t_valid[:, None], pad_to(tgt[t_order], Tp, 0.0), _SENT)
 
-    Qp = q_p.shape[0]
-    Tp = tgt_p.shape[0]
-    grid = (Qp // query_block, Tp // tgt_block)
-    mem = pl.ANY if interpret else pltpu.VMEM
+    qlo, qhi = _block_boxes(q_p, q_valid, bq)
+    tlo, thi = _block_boxes(t_p, t_valid, bt)
+    bound = _box_dist2(qlo, qhi, tlo, thi)              # (Qp/bq, Tp/bt)
+    r2 = jnp.reshape(jnp.asarray(radius, jnp.float32) ** 2, (1,))
 
-    qT = jnp.pad(q_p.T, ((0, 5), (0, 0)))                        # (8, Qp)
-    tgt_sent = jnp.where(mask_p[:, None], tgt_p, _SENT)          # (Tp, 3)
-
-    # per-tile lower bound on any pair distance (empty blocks -> +BIG)
-    qlo, qhi = _block_boxes(q_p, q_mask_p, query_block)
-    tlo, thi = _block_boxes(tgt_p, mask_p, tgt_block)
-    tile_d2 = _box_dist2(qlo, qhi, tlo, thi)            # (n_i, n_j)
-
-    r2 = float(radius) ** 2
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=1,  # tile_d2
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((8, query_block), lambda i, j, td: (0, i),
-                         memory_space=mem),
-            pl.BlockSpec((tgt_block, 3), lambda i, j, td: (j, 0),
-                         memory_space=mem),
-        ],
-        out_specs=pl.BlockSpec((16, query_block), lambda i, j, td: (0, i),
-                               memory_space=mem),
-        scratch_shapes=[pltpu.VMEM((16, query_block), jnp.float32)],
-    )
-    out = pl.pallas_call(
-        functools.partial(_ball_kernel, r2),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((16, Qp), jnp.float32),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary"),
-            # ~6 (BT, BQ) f32 temporaries are live at the accumulation
-            # point; the 16 MB default scoped-vmem limit only fits tiny
-            # tiles, while v5e has 128 MB of physical VMEM
-            vmem_limit_bytes=100 * 1024 * 1024,
-        ) if not interpret else None,
+    block = pl.BlockSpec((bq,), lambda i: (i,))
+    whole = pl.BlockSpec((Tp,), lambda i: (0,))
+    outs = pl.pallas_call(
+        functools.partial(_moments_kernel, tgt_block=bt),
+        grid=(Qp // bq,),
+        in_specs=[pl.BlockSpec((1,), lambda i: (0,)),
+                  pl.BlockSpec((None, Tp // bt), lambda i: (i, 0)),
+                  block, block, block, whole, whole, whole],
+        out_specs=[block] * 10,
+        out_shape=[jax.ShapeDtypeStruct((Qp,), jnp.float32)] * 10,
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=4),
         interpret=interpret,
-    )(tile_d2, qT, tgt_sent)
-
-    return out[0, :Q], out[1:4, :Q].T, out[4:10, :Q].T
+        name="ball_moments",
+    )(r2, bound, *q_p.T, *t_p.T)
+    # back from Morton order to the caller's query order
+    outs = jnp.zeros((Q, 10), jnp.float32).at[q_order].set(
+        jnp.stack(outs, axis=-1)[:Q])
+    return outs[:, 0], outs[:, 1:4], outs[:, 4:10]

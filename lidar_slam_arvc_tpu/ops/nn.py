@@ -2,13 +2,16 @@
 
 This replaces the reference's KD-tree queries (Open3D/FLANN inside
 ``registration_icp`` and ``KDTreeSearchParamHybrid``, reference
-keyframemanager/keyframe.py:160-162,246-252).  Pointer-chasing trees do not
-map to TPU; instead distances are computed tile-by-tile with the matmul
-identity  ||s-t||^2 = ||s||^2 + ||t||^2 - 2 s.t  so the inner product rides
-the MXU, and the running argmin/accumulators stay in registers/VMEM.  For
-LiDAR-scale clouds (10-100k points) the exact O(S*T) sweep is a few GFLOP —
-microseconds of MXU time — so it beats tree construction + irregular
-traversal by a wide margin while being exact.
+keyframemanager/keyframe.py:160-162,246-252).  Pointer-chasing trees map
+poorly to accelerators; instead distances are computed tile-by-tile with
+the matmul identity  ||s-t||^2 = ||s||^2 + ||t||^2 - 2 s.t  and a running
+argmin/accumulator per tile.  For LiDAR-scale clouds (10-100k points) the
+exact O(S*T) sweep is a few GFLOP, so it beats tree construction +
+irregular traversal while being exact.
+
+This is the plain version that runs on every backend; on CUDA GPUs
+ops.select swaps in the fused kernels of ops.nn_pallas and
+ops.moments_pallas for the 3-D sweep and the ball moments.
 
 Two access patterns:
   * :func:`nn_search` — per-source-point nearest target (ICP correspondence),
@@ -100,7 +103,7 @@ def nn2_search(src: jax.Array, tgt: jax.Array, tgt_mask: jax.Array,
     """Top-2 nearest targets per source row: (idx1, d2_1, d2_2).
 
     Used for Lowe-style ratio tests on feature matches (global
-    registration).  Same tiled MXU sweep as :func:`nn_search` with a
+    registration).  Same tiled sweep as :func:`nn_search` with a
     two-slot running minimum.
     """
     S, D = src.shape
@@ -162,12 +165,12 @@ def radius_accumulate(query: jax.Array, tgt: jax.Array, tgt_mask: jax.Array,
     neighbor coordinates and their outer-product upper triangles
     (xx,xy,xz,yy,yz,zz).  The caller turns these into mean + covariance —
     the input to normal estimation — without ever materializing neighbor
-    lists.  All three accumulations are masked matmuls on the MXU.
+    lists.  All three accumulations are masked matmuls.
 
     Precision note: these matmuls run at Precision.HIGHEST on purpose and it
     is load-bearing — the raw (origin-referenced) moments feed
     cloud.normals._cov_from_moments, whose cov = S2/n - m m^T subtraction
-    catastrophically cancels if S2 is accumulated in bfloat16.
+    catastrophically cancels if S2 is accumulated in bfloat16 or TF32.
     """
     Q = query.shape[0]
     q_p, _ = _pad_rows(query, query_block)

@@ -1,14 +1,14 @@
 """Multi-host scaling entry points (jax.distributed).
 
 The reference is strictly single-process (SURVEY.md §2.3).  This module
-provides the coordination layer for running the pipeline across TPU hosts:
+provides the coordination layer for running the pipeline across hosts:
 each process loads and preprocesses its shard of scans locally (PCD I/O is
 per-host), the pair batches shard over the global mesh, and the pose-graph
-assembly reduces with psum over ICI/DCN (parallel/dist_solver.py works
+assembly reduces with psum across devices and hosts (parallel/dist_solver.py works
 unchanged on a multi-host mesh — shard_map + psum compile to the right
 collectives).
 
-Single-chip CI cannot exercise real multi-host; the sharding-level tests run
+CI cannot exercise real multi-host; the sharding-level tests run
 on a virtual 8-device mesh (tests/test_parallel.py), and this module keeps
 the host-coordination logic isolated and small.
 """
@@ -23,8 +23,9 @@ def initialize(coordinator_address: str | None = None,
                process_id: int | None = None) -> dict:
     """Initialize jax.distributed (no-op when single-process).
 
-    On TPU pods with standard env plumbing all arguments auto-detect; pass
-    them explicitly for manual bring-up.  Returns a topology report.
+    Where the cluster environment describes the job, all arguments
+    auto-detect; pass them explicitly otherwise (one host of GPUs needs
+    ``coordinator_address='localhost:<port>'``).  Returns a topology report.
     """
     import jax
     if num_processes is not None and num_processes > 1:

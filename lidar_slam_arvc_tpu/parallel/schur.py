@@ -7,11 +7,11 @@ boundaries and loop-closure endpoints) form the SEPARATOR set; everything
 else is interior to exactly one chunk.  Each device then
 
   1. assembles its own interior block H_II^d (6m x 6m dense — small, and
-     dense Cholesky rides the MXU), the interior-separator coupling
+     dense Cholesky), the interior-separator coupling
      H_IS^d, its partial of the separator block H_SS and of the gradient,
   2. eliminates its interior locally: Y = H_II^-1 [H_IS | b_I],
   3. psums the reduced system S = H_SS - sum_d H_SI^d Y^d over the mesh
-     (ICI collectives) and solves the small replicated separator system,
+     (device collectives) and solves the small replicated separator system,
   4. back-substitutes its interior update locally.
 
 This is algebraically exact: identical (to roundoff) to the dense damped

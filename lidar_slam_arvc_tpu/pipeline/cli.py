@@ -36,9 +36,6 @@ def _add_common(p):
                         "stack itself over the mesh (n_scans/N per device, "
                         "ppermute halo for pair boundaries) instead of "
                         "replicating it")
-    p.add_argument("--compile-cache", default=None, metavar="DIR",
-                   help="persist compiled XLA programs to DIR (re-runs of "
-                        "the same program skip the multi-minute compile)")
     p.add_argument("--mesh", action="store_true",
                    help="convert: export alpha-shape meshes instead of "
                         "point PLYs (reference save_pointcloud_as_mesh)")
@@ -73,9 +70,8 @@ def main(argv=None):
         import jax
         jax.config.update("jax_platforms", "cpu")
 
-    if args.compile_cache:
-        from lidar_slam_arvc_tpu.utils.profiling import enable_compilation_cache
-        enable_compilation_cache(args.compile_cache)
+    from lidar_slam_arvc_tpu.utils.profiling import setup_compile_cache
+    setup_compile_cache()
 
     from lidar_slam_arvc_tpu.utils.config import IcpConfig
     overrides = {}

@@ -27,12 +27,12 @@ from lidar_slam_arvc_tpu.utils.config import IcpConfig
 def prepare_experiment_data(euroc: EurocDataset):
     """(reference run_graphSLAM.py:38-74)."""
     df_scan_times = euroc.read_csv("/robot0/scanmatcher/lidar_times.csv")
-    scan_times = df_scan_times["#timestamp [ns]"].to_numpy()
+    scan_times = df_scan_times["#timestamp [ns]"]
     df_sm_global = euroc.read_csv("/robot0/scanmatcher/scanmatcher_global.csv")
     try:
         df_odo = euroc.read_csv("/robot0/odom/data.csv")
         odo_times = euroc.get_closest_times(
-            scan_times, df_odo["#timestamp [ns]"].to_numpy())
+            scan_times, df_odo["#timestamp [ns]"])
         df_odo = euroc.get_df_at_times(df_odo, odo_times)
     except FileNotFoundError:
         df_odo = None
@@ -41,7 +41,7 @@ def prepare_experiment_data(euroc: EurocDataset):
         latlonref = euroc.read_utm_ref("gps0")
         df_gps = filter_gps(df_gps)
         df_gps = gps2utm(df_gps, latlonref)
-        gps_times = df_gps["#timestamp [ns]"].to_numpy()
+        gps_times = df_gps["#timestamp [ns]"]
         T0_gps = euroc.read_transform("gps0")
     except FileNotFoundError:
         df_gps, gps_times, T0_gps = None, None, None
@@ -194,9 +194,9 @@ def _run_graphslam(directory, cfg, progress, compiles, preprocessed=None):
         gps_index = get_current_gps_reading(current_time, gps_times,
                                             max_delta_time_s=0.05)
         if gps_index is not None:
-            graph.add_gps_factor(df_gps["x"].iloc[gps_index],
-                                 df_gps["y"].iloc[gps_index],
-                                 df_gps["altitude"].iloc[gps_index], i)
+            graph.add_gps_factor(df_gps["x"][gps_index],
+                                 df_gps["y"][gps_index],
+                                 df_gps["altitude"][gps_index], i)
             corr_indexes.append([i, gps_index])
 
         graph.add_initial_estimate(sm_rel[i], i + 1)
@@ -261,9 +261,8 @@ def _run_graphslam(directory, cfg, progress, compiles, preprocessed=None):
         covs = graph.marginal_covariances()
     else:
         # the artifact only plots skip-sampled ellipses, so compute ONLY
-        # those blocks (vmapped BCR-preconditioned CG, graph/pcg.py) —
-        # dense all-pose marginals at 1024-pose capacity measured 9.1 s on
-        # chip vs ~1 s for the sampled blocks
+        # those blocks (vmapped BCR-preconditioned CG, graph/pcg.py)
+        # instead of dense all-pose marginals
         idx = np.arange(0, graph.n_poses, skip)
         blocks = graph.marginal_covariances(indices=idx)
         covs = np.zeros((graph.n_poses, 6, 6))

@@ -1,6 +1,6 @@
 """Scan registration: ICP variants + global (feature-based) registration.
 
-TPU-native equivalents of the reference's four registration methods
+Device equivalents of the reference's four registration methods
 (keyframemanager/keyframe.py:231-345 / keyframemanager.py:52-75):
 
   * ``icppointpoint`` -> :func:`icp` with method='point_to_point'

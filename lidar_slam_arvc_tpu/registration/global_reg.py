@@ -6,7 +6,7 @@ from mutual-nearest FPFH features on the non-ground clouds, RANSAC over
 3-point correspondence triplets with the edge-length (0.9) and distance
 (fpfh_threshold=5 m) checkers, followed by point-to-plane ICP refinement.
 
-TPU formulation: feature NN is one tiled (S,33)x(33,T) matmul argmin; all
+Formulation: feature NN is one tiled (S,33)x(33,T) matmul argmin; all
 RANSAC hypotheses are drawn/solved/scored in one batched program — the
 3-point rigid solve is a closed-form orthonormal-frame alignment (no SVD),
 scoring is a batched correspondence-distance check.

@@ -5,9 +5,10 @@ Direction convention matches the reference: ``icp(src=cloud_j, tgt=cloud_i,
 T_init=T_ij)`` returns the refined T_i_j that maps points of scan j into
 scan i's frame (reference keyframemanager.py:52-75, "aTb").
 
-TPU-native structure (one fused jitted program per pair, batchable by vmap):
-  * correspondences from the exact tiled MXU nearest-neighbor sweep
-    (ops.nn_search) gated by ``max_correspondence_distance`` (10 m —
+Structure (one fused jitted program per pair, batchable by vmap):
+  * correspondences from the exact brute-force nearest-neighbor sweep
+    (ops.nearest_neighbors: a fused kernel on the GPU, a tiled XLA sweep
+    elsewhere) gated by ``max_correspondence_distance`` (10 m —
     reference config/icp_parameters.yaml:20-22),
   * a Gauss-Newton step on the se(3) left perturbation per iteration; the
     6x6 normal equations are built as (6,N)x(N,6) matmuls,
@@ -29,7 +30,7 @@ import jax.numpy as jnp
 
 from lidar_slam_arvc_tpu import geom
 from lidar_slam_arvc_tpu.cloud import Cloud
-from lidar_slam_arvc_tpu.ops import nn_search
+from lidar_slam_arvc_tpu.ops import nearest_neighbors
 
 _HI = jax.lax.Precision.HIGHEST
 
@@ -37,6 +38,8 @@ _HI = jax.lax.Precision.HIGHEST
 class ICPParams(NamedTuple):
     max_correspondence_distance: float = 10.0
     max_iterations: int = 30
+    # tiles of the XLA correspondence sweep (ops.nn.nn_search); the GPU
+    # kernel uses its own blocks
     src_block: int = 1024
     tgt_block: int = 2048
     # Robust (Welsch) IRLS weighting with a scale adapted to the current
@@ -51,35 +54,21 @@ class ICPParams(NamedTuple):
     # reference keyframe.py:246-252 uses the defaults).  Under vmap the
     # batch runs until every pair converges.  0 disables early exit.
     # Default 1e-4 (~0.1 mm updates) sits 10x below the scan-noise accuracy
-    # floor (bench deviation 1.5 mm rmse, identical at 1e-5) while cutting
-    # the post-convergence iteration tail: 688 vs 508 frames/s on the bench
-    # workload (TPU v5e, stride 2) — at 1e-5 the exit hovered on a knife
-    # edge where sub-noise normal perturbations cost ~30% extra iterations.
+    # floor while cutting the post-convergence iteration tail; at 1e-5 the
+    # exit hovers on a knife edge where sub-noise normal perturbations
+    # cost extra iterations.
     convergence_tol: float = 1e-4
-    # correspondence kernel: 'auto' uses the fused Pallas sweep on TPU at
-    # its tuned formulation/tile shape (currently 'vpu_t' — transposed
-    # sublane reductions, 1.5x over 'vpu') and the tiled XLA path
-    # elsewhere.  Explicit formulation names
-    # ('vpu'|'vpu2'|'vpu_t'|'vpu_tq'|'mxu') force that Pallas variant;
-    # 'pallas' is an alias for the tuned default; 'vpu_tq' fuses the
-    # correspondence gathers into the sweep (measured slower — see the
-    # dispatch below).  'pruned' adds Morton-sorted blocks visited nearest-first
-    # with bbox-bound skipping (ops/nn_pruned.py): exact within the
-    # correspondence gate; TPU only.
-    nn_impl: str = "auto"
     # Coarse-to-fine: run up to ``coarse_iterations`` first with the source
     # statically strided by ``coarse_factor``, then refine at full
-    # resolution.  Measured neutral-to-slightly-negative on TPU once
-    # early-exit is on (166.7 vs 181.2 frames/s on the bench workload, at
-    # 2x the compile time), so disabled by default; available for
-    # bad-seed/large-motion regimes.
+    # resolution.  Disabled by default (it doubles the compile time);
+    # available for bad-seed/large-motion regimes.
     coarse_factor: int = 1
     coarse_iterations: int = 0
     # Final fitness/inlier_rmse: False (default) reports the metrics of the
     # LAST iteration's correspondence set (one se(3) update behind the
     # returned transform — indistinguishable below convergence_tol), saving
-    # one full NN sweep per solve; at the bench's 2-3 iterations/pair that
-    # extra sweep was ~25% of the solve.  True recomputes at the final
+    # one full NN sweep per solve, a large share of a solve that converges
+    # in 2-3 iterations.  True recomputes at the final
     # transform (Open3D evaluate_registration semantics).  For a
     # max_iterations exit the carried metrics predate a possibly-large last
     # update — divergence detection must gate on ICPResult.final_delta, as
@@ -87,8 +76,8 @@ class ICPParams(NamedTuple):
     exact_metrics: bool = False
     # Persistent source subsampling: stride the source cloud by this factor
     # for the ENTIRE solve (unlike coarse-to-fine, no full-resolution refine
-    # phase).  The NN sweep is O(S*T) and dominates per-iteration cost
-    # (benchmarks/icp_step_breakdown.py), so stride f cuts sweep time ~f x.
+    # phase).  The NN sweep is O(S*T) and dominates per-iteration cost,
+    # so stride f cuts sweep time ~f x.
     # Point-to-plane stays hugely overdetermined (6 DOF from thousands of
     # correspondences); the voxel grid already decorrelates neighbors, so a
     # uniform stride is an unbiased spatial subsample.  Final
@@ -163,90 +152,13 @@ def icp(src: Cloud, tgt: Cloud, T_init: jax.Array,
     tgt_pts, tgt_mask = tgt.points, tgt.mask
     src_points, src_mask = src.points, src.mask
     if params.source_stride > 1:
-        # applied before the NN-impl dispatch so every kernel's tile sizing
-        # (and the pruned path's Morton sort) sees the reduced source set
         src_points = src_points[::params.source_stride]
         src_mask = src_mask[::params.source_stride]
     tgt_normals = tgt.normals if tgt.normals is not None else jnp.zeros_like(tgt.points)
 
-    if params.nn_impl == "pruned":
-        if params.coarse_factor > 1 and params.coarse_iterations > 0:
-            raise ValueError("nn_impl='pruned' does not compose with the "
-                             "coarse-to-fine schedule (strided sources "
-                             "break the presorted block layout)")
-        # Distance-adaptive sweep: exact within the correspondence gate,
-        # which is the only region gated ICP consumes (ops/nn_pruned.py).
-        # Both clouds are Morton-sorted ONCE here — the target is fixed and
-        # rigid motion preserves source locality, so the expensive argsorts
-        # stay outside the iteration loop; all downstream reductions are
-        # row-order invariant.
-        from lidar_slam_arvc_tpu.ops.nn_pruned import (
-            morton_sort, nn_search_pruned_presorted,
-        )
-        sb = min(512, params.src_block)
-        tb = min(512, params.tgt_block)
-        src_points, src_mask, _ = morton_sort(src_points, src_mask, sb)
-        ts, tv, t_order = morton_sort(tgt_pts, tgt_mask, tb)
-        tgt_normals = jnp.pad(
-            tgt_normals,
-            ((0, ts.shape[0] - tgt_normals.shape[0]), (0, 0)))[t_order]
-        tgt_pts, tgt_mask = ts, tv
-
-        # off-TPU the Pallas kernel only exists in interpret mode — slow,
-        # but keeps the impl selectable for CPU tests/debugging
-        interp = jax.default_backend() != "tpu"
-
-        def nn(p, tpts, tmask):
-            return nn_search_pruned_presorted(
-                p, src_mask, tpts, tmask,
-                gate=params.max_correspondence_distance,
-                src_block=sb, tgt_block=tb, interpret=interp)
-    elif (params.nn_impl in ("pallas", "vpu", "vpu2", "vpu_t", "vpu_tq",
-                             "mxu")
-          or (params.nn_impl == "auto" and jax.default_backend() == "tpu")):
-        from lidar_slam_arvc_tpu.ops.nn_pallas import (
-            nn_search_pallas, nn_search_pallas_vals,
-        )
-        # off-TPU the kernel only exists in (slow) interpret mode; keeps
-        # explicitly forced formulations selectable for CPU tests/debugging
-        interp = jax.default_backend() != "tpu"
-        if params.nn_impl == "vpu_tq":
-            # gather-free variant: the sweep returns the winner's target
-            # point and normal directly (one-hot MXU selection inside the
-            # kernel, ops/nn_pallas.py _nn_kernel_vpu_tq), so the per-
-            # iteration tgt[idx]/normals[idx] row-gathers disappear.
-            # Measured SLOWER end-to-end than 'vpu_t' + gathers on the
-            # bench workload (431 vs 482 frames/s, TPU v5e): the per-tile
-            # one-hot mask + selection exceeds the ~0.05 ms/iter the two
-            # row-gathers cost (benchmarks/icp_step_breakdown.py).  Kept
-            # selectable for future hardware where gathers are pricier.
-            sb = min(2048, -(-src_points.shape[0] // 128) * 128)
-            tb = min(1024, -(-tgt_pts.shape[0] // 8) * 8)
-            nn_vals = functools.partial(nn_search_pallas_vals,
-                                        src_block=sb, tgt_block=tb,
-                                        interpret=interp)
-            nn = None
-        elif params.nn_impl in ("auto", "pallas", "vpu_t"):
-            # transposed sublane-reduction formulation at its tuned tile
-            # shape — 0.29 ms vs 0.45 ms per 8192^2 sweep for 'vpu'
-            # (benchmarks/nn_impl_sweep.py, TPU v5e); sources ride the lane
-            # axis so the block roles swap, and the (1024, 2048) f32 score
-            # tile stays inside the 16 MB scoped-VMEM limit.  Blocks clamp
-            # to the (hardware-aligned) cloud sizes so small clouds don't
-            # pay for the full tuned tile.
-            sb = min(2048, -(-src_points.shape[0] // 128) * 128)
-            tb = min(1024, -(-tgt_pts.shape[0] // 8) * 8)
-            nn = functools.partial(nn_search_pallas, impl="vpu_t",
-                                   src_block=sb, tgt_block=tb,
-                                   interpret=interp)
-        else:
-            nn = functools.partial(nn_search_pallas, impl=params.nn_impl,
-                                   src_block=min(512, params.src_block),
-                                   tgt_block=params.tgt_block,
-                                   interpret=interp)
-    else:
-        nn = functools.partial(nn_search, src_block=params.src_block,
-                               tgt_block=params.tgt_block)
+    def nn(p, tpts, tmask):
+        return nearest_neighbors(p, tpts, tmask, src_block=params.src_block,
+                                 tgt_block=params.tgt_block)
 
     thr2 = params.max_correspondence_distance ** 2
     src_pts = src_points
@@ -254,8 +166,6 @@ def icp(src: Cloud, tgt: Cloud, T_init: jax.Array,
 
     def correspond(p):
         """(d2, q, n_corr) for each transformed source point."""
-        if nn is None:
-            return nn_vals(p, tgt_pts, tgt_mask, tgt_normals)
         idx, d2 = nn(p, tgt_pts, tgt_mask)
         return d2, tgt_pts[idx], tgt_normals[idx]
 

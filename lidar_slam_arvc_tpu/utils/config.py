@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 
-import yaml
+from lidar_slam_arvc_tpu.io.formats import load_yaml
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,7 +38,7 @@ class IcpConfig:
     # neighbors per point (~5x the voxel size) or the 33-bin histograms are
     # noise; the reference's 0.3 works only on its full-resolution clouds.
     fpfh_radius: float = 1.0
-    # TPU shape policy (no reference counterpart)
+    # shape policy (no reference counterpart)
     # failure detection: if a pair's ICP inlier fraction falls below this,
     # keep the odometry seed instead of the (likely diverged) ICP result.
     # The reference has no such gate (SURVEY.md §5: failures abort the run).
@@ -52,8 +52,8 @@ class IcpConfig:
     max_iterations: int = 30
     # scan pairs per ICP dispatch group.  A vmapped group iterates until
     # EVERY member's early exit fires, so smaller groups waste fewer
-    # iterations on already-converged pairs: measured 490 (4) vs 473 (1)
-    # vs 315 (8) frames/s on the bench workload (TPU v5e).
+    # iterations on already-converged pairs, while larger groups fill the
+    # device better.
     batch_size: int = 4
     # persistent source subsampling inside ICP (registration/icp.py
     # ICPParams.source_stride): stride f cuts the dominant O(S*T) NN-sweep
@@ -77,8 +77,7 @@ class IcpConfig:
 
     @classmethod
     def from_yaml(cls, path: str, **overrides) -> "IcpConfig":
-        with open(path) as f:
-            y = yaml.safe_load(f)
+        y = load_yaml(path)
         kw = dict(
             max_radius=y["filter_by_radius"]["max_radius"],
             min_radius=y["filter_by_radius"]["min_radius"],

@@ -13,9 +13,9 @@ from __future__ import annotations
 import os
 
 import numpy as np
-import yaml
 
 from lidar_slam_arvc_tpu.geom.hostmath import pose_columns_from_transforms_np
+from lidar_slam_arvc_tpu.io.formats import dump_yaml, write_csv
 from lidar_slam_arvc_tpu.io.pcd import write_pcd
 
 
@@ -169,13 +169,12 @@ def make_dataset(directory: str, n_scans: int = 40, seed: int = 0,
     os.makedirs(f"{directory}/robot0/lidar/data", exist_ok=True)
 
     # LiDAR scans + index CSV
-    import pandas as pd
     for i in range(n_scans):
         scan = render_scan(world, T_gt[i], rng, max_points=scan_points,
                            max_range=max_range)
         write_pcd(f"{directory}/robot0/lidar/data/{times[i]}.pcd", scan)
-    pd.DataFrame({"#timestamp [ns]": times}).to_csv(
-        f"{directory}/robot0/lidar/data.csv", index=False)
+    write_csv(f"{directory}/robot0/lidar/data.csv",
+              {"#timestamp [ns]": times}, index=False)
 
     # odometry (noisy), at 4x the scan rate for realistic association
     odo_times = (1e9 * (1.0 + 0.25 * np.arange(4 * n_scans))).astype(np.int64)
@@ -192,33 +191,55 @@ def make_dataset(directory: str, n_scans: int = 40, seed: int = 0,
         lon_per_m = 1.0 / (111_320.0 * np.cos(np.deg2rad(lat_ref)))
         xy = T_gt[:, :2, 3] + rng.normal(scale=0.05, size=(n_scans, 2))
         os.makedirs(f"{directory}/robot0/gps0", exist_ok=True)
-        pd.DataFrame({
+        write_csv(f"{directory}/robot0/gps0/data.csv", {
             "#timestamp [ns]": times,
             "latitude": lat_ref + xy[:, 1] * lat_per_m,
             "longitude": lon_ref + xy[:, 0] * lon_per_m,
             "altitude": alt_ref + T_gt[:, 2, 3],
-        }).to_csv(f"{directory}/robot0/gps0/data.csv", index=False)
-        with open(f"{directory}/robot0/gps0/reference.yaml", "w") as f:
-            yaml.safe_dump({"latitude": lat_ref, "longitude": lon_ref,
-                            "altitude": alt_ref}, f)
-        with open(f"{directory}/robot0/gps0/transform.yaml", "w") as f:
-            yaml.safe_dump({"transform": np.eye(4).reshape(-1).tolist()}, f)
+        }, index=False)
+        dump_yaml({"latitude": lat_ref, "longitude": lon_ref,
+                   "altitude": alt_ref},
+                  f"{directory}/robot0/gps0/reference.yaml")
+        dump_yaml({"transform": np.eye(4).reshape(-1).tolist()},
+                  f"{directory}/robot0/gps0/transform.yaml")
 
     sm = {"start_index": 0, "delta_time": 1.0, "voxel_size": 0.2,
           "method": "icppointplane"}
     sm.update(scanmatcher_params or {})
-    with open(f"{directory}/robot0/scanmatcher_parameters.yaml", "w") as f:
-        yaml.safe_dump(sm, f)
+    dump_yaml(sm, f"{directory}/robot0/scanmatcher_parameters.yaml")
 
     sl = {"perform_loop_closing": True, "method": "icppointplane",
           "skip_loop_closing": 10, "skip_optimization": 10,
           "number_of_triplets_loop_closing": 10, "radius_threshold": 3.0,
           "distance_backwards": 8.0, "visualization_keyframe_sampling": 10}
     sl.update(slam_params or {})
-    with open(f"{directory}/robot0/slam_parameters.yaml", "w") as f:
-        yaml.safe_dump(sl, f)
+    dump_yaml(sl, f"{directory}/robot0/slam_parameters.yaml")
 
     return {"T_gt": T_gt, "times": times, "world": world}
+
+
+def make_outdoor_loop_dataset(directory: str, n_scans: int = 200,
+                              scan_points: int = 20000,
+                              with_gps: bool = True) -> dict:
+    """The reference's outdoor loop-closing regime as a synthetic dataset.
+
+    A closed 16 m-radius circuit whose tail re-enters the head's
+    neighbourhood, scans of ``scan_points`` points within 25 m, stage 1 and
+    stage 2 at full resolution (voxel None, reference run_graphSLAM.py:224)
+    and loop closing within 7 m (run_graphSLAM.py:153,168).
+    """
+    return make_dataset(
+        directory, n_scans=n_scans, seed=11, radius=16.0,
+        scan_points=scan_points, max_range=25.0, with_gps=with_gps,
+        world_kwargs={"n_ground": 60000, "n_pillars": 120,
+                      "pillar_pts": 500},
+        scanmatcher_params={"voxel_size": None, "delta_time": 1.0,
+                            "method": "icppointplane", "start_index": 0},
+        slam_params={"perform_loop_closing": True,
+                     "radius_threshold": 7.0, "distance_backwards": 7.0,
+                     "skip_loop_closing": 8,
+                     "number_of_triplets_loop_closing": 6,
+                     "skip_optimization": 8})
 
 
 def _interp_traj(T: np.ndarray, t_src: np.ndarray, t_dst: np.ndarray):
@@ -234,11 +255,10 @@ def _interp_traj(T: np.ndarray, t_src: np.ndarray, t_dst: np.ndarray):
 
 
 def _write_traj_csv(path: str, times: np.ndarray, T: np.ndarray):
-    import pandas as pd
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     xyz, q = pose_columns_from_transforms_np(T)
-    pd.DataFrame({
+    write_csv(path, {
         "#timestamp [ns]": times,
         "x": xyz[:, 0], "y": xyz[:, 1], "z": xyz[:, 2],
         "qx": q[:, 1], "qy": q[:, 2], "qz": q[:, 3], "qw": q[:, 0],
-    }).to_csv(path, index=False)
+    }, index=False)

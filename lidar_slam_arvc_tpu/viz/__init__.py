@@ -3,7 +3,8 @@
 The reference's interactive Open3D windows (keyframemanager.py:108-184,
 run_map_viewer.py) are replaced with headless artifacts: matplotlib PNGs for
 trajectories/loop-closures and PLY/PCD exports for global maps
-(SURVEY.md §2.2 — interactive 3D visualization is a non-goal on TPU hosts).
+(SURVEY.md §2.2 — interactive 3D visualization is a non-goal on
+accelerator hosts).
 """
 
 from lidar_slam_arvc_tpu.viz.mapping import (

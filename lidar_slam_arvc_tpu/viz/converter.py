@@ -20,7 +20,7 @@ def convert_dataset(directory: str, sampling: int = 1, mesh: bool = False,
                     alpha: float = 0.01) -> int:
     euroc = EurocDataset(directory)
     df = euroc.read_csv("/robot0/lidar/data.csv")
-    times = df["#timestamp [ns]"].to_numpy()
+    times = df["#timestamp [ns]"]
     out_dir = f"{directory}/robot0/lidar/dataply"
     os.makedirs(out_dir, exist_ok=True)
     n = 0

@@ -19,6 +19,8 @@ import os
 
 import numpy as np
 
+from lidar_slam_arvc_tpu.io.formats import columns, n_rows
+
 from lidar_slam_arvc_tpu.io import EurocDataset, filter_gps, gps2utm
 from lidar_slam_arvc_tpu.viz.plots import _agg
 
@@ -42,7 +44,7 @@ def check_timestamps(directory: str) -> dict:
             df = euroc.read_csv(path)
         except FileNotFoundError:
             continue
-        t = df["#timestamp [ns]"].to_numpy() / 1e9
+        t = df["#timestamp [ns]"] / 1e9
         dt = np.diff(t)
         report[name] = {
             "count": int(len(t)),
@@ -65,7 +67,7 @@ def check_timestamps(directory: str) -> dict:
     # odometry distance travelled (check_timestamps.py:10-16,55)
     try:
         df_odo = euroc.read_csv("/robot0/odom/data.csv")
-        xy = df_odo[["x", "y"]].to_numpy()
+        xy = columns(df_odo, ["x", "y"])
         report["odometry_distance_m"] = float(
             np.linalg.norm(np.diff(xy, axis=0), axis=1).sum())
     except FileNotFoundError:
@@ -98,8 +100,7 @@ def view_solutions(directory: str,
                 label="GPS UTM")
         # end-point error (view_solutions.py:29-34)
         report["end_point_error_m"] = float(np.linalg.norm(
-            p[-1, :2] - np.array([df_gps["x"].iloc[-1],
-                                  df_gps["y"].iloc[-1]])))
+            p[-1, :2] - np.array([df_gps["x"][-1], df_gps["y"][-1]])))
     except FileNotFoundError:
         pass
     ax.axis("equal")
@@ -133,11 +134,9 @@ def compare_solutions(directory: str,
         p, q = p[:n], q[:n]
     else:
         df_gps = _load_gps_utm(euroc)
-        gps_times = df_gps["#timestamp [ns]"].to_numpy()
-        idx = EurocDataset.get_closest_times(times, gps_times)
-        indexed = df_gps.set_index("#timestamp [ns]")
-        rows = indexed.loc[idx]
-        q = rows[["x", "y"]].to_numpy()
+        idx = EurocDataset.get_closest_times(times,
+                                             df_gps["#timestamp [ns]"])
+        q = columns(EurocDataset.get_df_at_times(df_gps, idx), ["x", "y"])
 
     dp = np.linalg.norm(np.diff(p, axis=0), axis=1)
     dq = np.linalg.norm(np.diff(q, axis=0), axis=1)
@@ -157,14 +156,14 @@ def view_raw_data(directory: str) -> dict:
         df_odo = euroc.read_csv("/robot0/odom/data.csv")
         ax.plot(df_odo["x"], df_odo["y"], ".-", markersize=2,
                 label="odometry")
-        report["odom_rows"] = int(len(df_odo))
+        report["odom_rows"] = n_rows(df_odo)
     except FileNotFoundError:
         pass
     try:
         df_gps = _load_gps_utm(euroc)
         ax.plot(df_gps["x"], df_gps["y"], "o", markersize=3, color="red",
                 label="GPS UTM")
-        report["gps_rows"] = int(len(df_gps))
+        report["gps_rows"] = n_rows(df_gps)
     except FileNotFoundError:
         pass
     ax.axis("equal")

@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from lidar_slam_arvc_tpu.io.formats import n_rows
+
 
 def _agg():
     import matplotlib
@@ -105,8 +107,9 @@ def plot_gps_comparison(T: np.ndarray, df_gps, correspondences,
     ax.plot(df_gps["x"], df_gps["y"], marker="o", linestyle="none",
             markersize=3, color="red", label="GPS UTM")
     for (i, k) in correspondences:
-        ax.plot([p[i, 0], df_gps["x"].iloc[k]],
-                [p[i, 1], df_gps["y"].iloc[k]], color="black", linewidth=1)
+        ax.plot([p[i, 0], np.asarray(df_gps["x"])[k]],
+                [p[i, 1], np.asarray(df_gps["y"])[k]], color="black",
+                linewidth=1)
     ax.legend()
     ax.set_title("Correspondences (estimation, GPS)")
     fig.savefig(path, dpi=120, bbox_inches="tight")
@@ -174,13 +177,13 @@ def _plot_points(df, xcol, ycol, xlabel, ylabel, path, title,
     ax.set_title(title)
     ax.set_xlabel(xlabel)
     ax.set_ylabel(ylabel)
-    for i in range(0, len(df), max(int(sample), 1)):
-        x = df[xcol].iloc[i]
-        y = df[ycol].iloc[i]
+    for i in range(0, n_rows(df), max(int(sample), 1)):
+        x = np.asarray(df[xcol])[i]
+        y = np.asarray(df[ycol])[i]
         if annotate_index:
             ax.annotate(str(i), (x, y), fontsize=12)
         if annotate_error:
-            s = 2 * np.sqrt(df["covariance_d1"].iloc[i])
+            s = 2 * np.sqrt(np.asarray(df["covariance_d1"])[i])
             ax.annotate(f"{s:.3f}", (x, y), fontsize=12)
     fig.savefig(path, dpi=120, bbox_inches="tight")
     plt.close(fig)
@@ -253,7 +256,7 @@ def plot_xyz_data(df_data, path: str, title: str = "XYZ",
         ts = np.asarray(df_data["#timestamp [ns]"], dtype=np.float64)
         xs = (ts - ts[0]) / 1e9
     else:
-        xs = np.arange(len(df_data))
+        xs = np.arange(n_rows(df_data))
     fig, ax = plt.subplots(figsize=(10, 6))
     for col, color in (("x", "red"), ("y", "green"), ("z", "blue")):
         ax.plot(xs, df_data[col], color=color, linestyle="dashed", marker="o",
@@ -274,13 +277,15 @@ def plot_xy_data(df_data, path: str, title: str = "XY", sample: int = 10,
     ax.scatter(df_data["x"], df_data["y"], color="blue")
     if annotate_time:
         ts = np.asarray(df_data["#timestamp [ns]"], dtype=np.float64)
-        for i in range(0, len(df_data), sample):
+        for i in range(0, n_rows(df_data), sample):
             ax.annotate(f"{(ts[i] - ts[0]) / 1e9:.3f}",
-                        (df_data["x"].iloc[i], df_data["y"].iloc[i]),
+                        (np.asarray(df_data["x"])[i],
+                         np.asarray(df_data["y"])[i]),
                         fontsize=12)
     if annotate_index:
-        for i in range(0, len(df_data), sample):
-            ax.annotate(str(i), (df_data["x"].iloc[i], df_data["y"].iloc[i]),
+        for i in range(0, n_rows(df_data), sample):
+            ax.annotate(str(i), (np.asarray(df_data["x"])[i],
+                                 np.asarray(df_data["y"])[i]),
                         fontsize=12)
     ax.set_title(title)
     fig.savefig(path, dpi=120, bbox_inches="tight")
@@ -292,7 +297,6 @@ def plot_registration(src_points, tgt_points, transform, path: str,
     """Overlay of a registered pair: source (red) transformed into the
     target frame (blue) — headless equivalent of the reference's
     draw_registration_result (keyframe.py:347-358)."""
-    import numpy as np
     plt = _agg()
     src = np.asarray(src_points)
     tgt = np.asarray(tgt_points)

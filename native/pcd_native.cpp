@@ -1,6 +1,6 @@
 // Native data-loader kernels for lidar_slam_arvc_tpu (host side).
 //
-// The TPU compute path is JAX/XLA/Pallas; this library accelerates the
+// The device compute path is JAX/XLA/Pallas; this library accelerates the
 // host-bound part of the pipeline — parsing thousands of per-scan PCD files
 // (the role Open3D's C++ reader plays for the reference,
 // keyframemanager/keyframe.py:41-51).  Exposed via ctypes (no pybind11 in

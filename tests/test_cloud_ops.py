@@ -12,6 +12,7 @@ from lidar_slam_arvc_tpu.ops import (
     ball_moments_pallas, eigvals_sym3, nn_search, radius_accumulate,
     smallest_eigenvector_sym3,
 )
+from lidar_slam_arvc_tpu.ops.moments_pallas import _box_dist2
 
 
 class TestEigh3:
@@ -120,14 +121,19 @@ class TestBallMomentsPallas:
         np.testing.assert_allclose(np.asarray(s2), s2_ref, atol=1e-4)
 
     def test_normals_pallas_path_matches_xla(self, rng):
+        from lidar_slam_arvc_tpu.cloud.normals import _cov_from_moments
         pts = rng.uniform(-3, 3, size=(300, 3)).astype(np.float32)
         pts[:, 2] = 0.3 * np.sin(pts[:, 0])  # smooth sheet
         c = cl.from_numpy(pts, capacity=512)
-        n_xla = cl.estimate_normals(c, radius=0.8, impl="xla")
-        n_pl = cl.estimate_normals(c, radius=0.8, impl="pallas_interpret")
-        m = np.asarray(c.mask)
+        n_xla = cl.estimate_normals(c, radius=0.8)     # CPU: the XLA path
+        count, s1, s2 = ball_moments_pallas(
+            c.points, c.points, c.mask, 0.8, query_mask=c.mask,
+            interpret=True)
+        n_pl = smallest_eigenvector_sym3(_cov_from_moments(count, s1, s2))
+        # estimate_normals sets +z where fewer than 3 neighbours
+        m = np.asarray(c.mask) & (np.asarray(count) >= 3)
         a = np.asarray(n_xla.normals)[m]
-        b = np.asarray(n_pl.normals)[m]
+        b = np.asarray(n_pl)[m]
         dots = np.abs(np.sum(a * b, axis=1))
         assert np.min(dots) > 0.999
 
@@ -148,6 +154,40 @@ class TestBallMomentsPallas:
         np.testing.assert_allclose(np.asarray(count), c_ref, atol=0.5)
         np.testing.assert_allclose(np.asarray(s1), s1_ref, atol=1e-4)
         np.testing.assert_allclose(np.asarray(s2), s2_ref, atol=1e-4)
+
+    @pytest.mark.parametrize("q_n,t_n,qb,tb,r", [
+        (16, 16, 16, 16, 0.9), (33, 200, 16, 64, 0.5),
+        (129, 70, 64, 32, 1.2), (300, 300, 64, 64, 0.4)])
+    def test_shapes_not_block_multiples(self, rng, q_n, t_n, qb, tb, r):
+        q = rng.normal(size=(q_n, 3)).astype(np.float32)
+        tgt = rng.normal(size=(t_n, 3)).astype(np.float32)
+        mask = rng.uniform(size=t_n) > 0.25
+        count, s1, s2 = ball_moments_pallas(
+            jnp.asarray(q), jnp.asarray(tgt), jnp.asarray(mask), r,
+            query_block=qb, tgt_block=tb, interpret=True)
+        c_ref, s1_ref, s2_ref = self._oracle(
+            q.astype(np.float64), tgt.astype(np.float64), mask, r)
+        np.testing.assert_array_equal(np.asarray(count), c_ref)
+        np.testing.assert_allclose(np.asarray(s1), s1_ref, atol=1e-4)
+        np.testing.assert_allclose(np.asarray(s2), s2_ref, atol=1e-4)
+
+    def test_all_targets_masked(self, rng):
+        q = rng.normal(size=(40, 3)).astype(np.float32)
+        count, s1, s2 = ball_moments_pallas(
+            jnp.asarray(q), jnp.asarray(q), jnp.zeros(40, dtype=bool), 5.0,
+            query_block=16, tgt_block=16, interpret=True)
+        assert not np.asarray(count).any()
+        assert not np.asarray(s1).any() and not np.asarray(s2).any()
+
+    def test_traced_radius(self, rng):
+        q = rng.normal(size=(50, 3)).astype(np.float32)
+        mask = np.ones(50, dtype=bool)
+        f = jax.jit(lambda p, m, r: ball_moments_pallas(
+            p, p, m, r, query_block=16, tgt_block=16, interpret=True))
+        for r in (0.5, 1.0):
+            count, _, _ = f(jnp.asarray(q), jnp.asarray(mask), r)
+            c_ref, _, _ = self._oracle(q, q, mask, r)
+            np.testing.assert_array_equal(np.asarray(count), c_ref)
 
     def test_vmap_batches(self, rng):
         # preprocess_batch vmaps estimate_normals over scans
@@ -377,10 +417,17 @@ class TestGroundPlane:
 
 
 class TestPallasNN:
-    """Pallas NN kernel vs the XLA formulation (interpret mode on CPU)."""
+    """Fused NN sweep kernel (Pallas interpreter) vs cKDTree."""
 
-    @pytest.mark.parametrize("impl", ["vpu", "vpu2", "vpu_t", "mxu"])
-    def test_matches_xla(self, rng, impl):
+    @staticmethod
+    def _check(src, tgt, mask, idx, d2):
+        valid = np.flatnonzero(mask)
+        d_ref, i_ref = cKDTree(tgt[valid].astype(np.float64)).query(
+            src.astype(np.float64))
+        np.testing.assert_array_equal(np.asarray(idx), valid[i_ref])
+        np.testing.assert_allclose(np.asarray(d2), d_ref ** 2, atol=1e-4)
+
+    def test_matches_xla(self, rng):
         from lidar_slam_arvc_tpu.ops.nn_pallas import nn_search_pallas
         src = rng.normal(size=(300, 3)).astype(np.float32) * 10
         tgt = rng.normal(size=(500, 3)).astype(np.float32) * 10
@@ -390,39 +437,70 @@ class TestPallasNN:
                            jnp.asarray(mask), src_block=128, tgt_block=128)
         i2, d2 = nn_search_pallas(jnp.asarray(src), jnp.asarray(tgt),
                                   jnp.asarray(mask), src_block=128,
-                                  tgt_block=128, interpret=True, impl=impl)
+                                  tgt_block=128, interpret=True)
         np.testing.assert_array_equal(np.asarray(i1), np.asarray(i2))
         np.testing.assert_allclose(np.asarray(d1), np.asarray(d2), atol=1e-3)
 
-    def test_vals_variant_matches_gather(self, rng):
-        """vpu_tq returns the winner's (q, n) values == gathering by index."""
-        from lidar_slam_arvc_tpu.ops.nn_pallas import (
-            nn_search_pallas, nn_search_pallas_vals,
-        )
-        src = rng.normal(size=(300, 3)).astype(np.float32) * 10
-        tgt = rng.normal(size=(500, 3)).astype(np.float32) * 10
-        nrm = rng.normal(size=(500, 3)).astype(np.float32)
-        nrm /= np.linalg.norm(nrm, axis=-1, keepdims=True)
-        mask = np.ones(500, dtype=bool)
-        mask[100:150] = False
-        i1, d1 = nn_search_pallas(jnp.asarray(src), jnp.asarray(tgt),
-                                  jnp.asarray(mask), src_block=128,
-                                  tgt_block=128, interpret=True, impl="vpu_t")
-        d2, q, n = nn_search_pallas_vals(
-            jnp.asarray(src), jnp.asarray(tgt), jnp.asarray(mask),
-            jnp.asarray(nrm), src_block=128, tgt_block=128, interpret=True)
-        np.testing.assert_allclose(np.asarray(d1), np.asarray(d2), atol=1e-3)
-        np.testing.assert_array_equal(np.asarray(q), tgt[np.asarray(i1)])
-        np.testing.assert_array_equal(np.asarray(n), nrm[np.asarray(i1)])
-
-    @pytest.mark.parametrize("impl", ["vpu", "vpu2", "vpu_t", "mxu"])
-    def test_non_multiple_shapes(self, rng, impl):
+    @pytest.mark.parametrize("s_n,t_n,sb,tb", [
+        (77, 131, 64, 128), (16, 16, 16, 16), (129, 300, 32, 64),
+        (300, 1000, 128, 32)])
+    def test_non_multiple_shapes(self, rng, s_n, t_n, sb, tb):
         from lidar_slam_arvc_tpu.ops.nn_pallas import nn_search_pallas
-        src = rng.normal(size=(77, 3)).astype(np.float32)
-        tgt = rng.normal(size=(131, 3)).astype(np.float32)
-        i2, d2 = nn_search_pallas(jnp.asarray(src), jnp.asarray(tgt),
-                                  jnp.ones(131, dtype=bool), src_block=64,
-                                  tgt_block=128, interpret=True, impl=impl)
-        from scipy.spatial import cKDTree
-        _, i_ref = cKDTree(tgt).query(src)
-        np.testing.assert_array_equal(np.asarray(i2), i_ref)
+        src = rng.normal(size=(s_n, 3)).astype(np.float32) * 5
+        tgt = rng.normal(size=(t_n, 3)).astype(np.float32) * 5
+        mask = rng.uniform(size=t_n) > 0.2
+        idx, d2 = nn_search_pallas(jnp.asarray(src), jnp.asarray(tgt),
+                                   jnp.asarray(mask), src_block=sb,
+                                   tgt_block=tb, interpret=True)
+        self._check(src, tgt, mask, idx, d2)
+
+    def test_all_targets_masked(self, rng):
+        from lidar_slam_arvc_tpu.ops.nn_pallas import nn_search_pallas
+        src = rng.normal(size=(40, 3)).astype(np.float32)
+        tgt = rng.normal(size=(70, 3)).astype(np.float32)
+        idx, d2 = nn_search_pallas(jnp.asarray(src), jnp.asarray(tgt),
+                                   jnp.zeros(70, dtype=bool), src_block=16,
+                                   tgt_block=16, interpret=True)
+        # no valid target: the result can never pass a correspondence gate
+        assert np.all(np.asarray(d2) > 1e12)
+        assert np.all((np.asarray(idx) >= 0) & (np.asarray(idx) < 70))
+
+    def test_ties_take_lowest_index(self):
+        from lidar_slam_arvc_tpu.ops.nn_pallas import nn_search_pallas
+        # the same point at indices 5, 21 and 40 (different tiles and
+        # lanes of a 16-wide tile), all equally near every source
+        tgt = np.full((48, 3), 50.0, dtype=np.float32)
+        tgt[[5, 21, 40]] = [1.0, 2.0, 3.0]
+        src = np.array([[1.0, 2.0, 3.1], [1.1, 2.0, 3.0]], np.float32)
+        idx, _ = nn_search_pallas(jnp.asarray(src), jnp.asarray(tgt),
+                                  jnp.ones(48, dtype=bool), src_block=16,
+                                  tgt_block=16, interpret=True)
+        np.testing.assert_array_equal(np.asarray(idx), [5, 5])
+
+    def test_vmap_matches_per_pair(self, rng):
+        from lidar_slam_arvc_tpu.ops.nn_pallas import nn_search_pallas
+        src = rng.normal(size=(3, 50, 3)).astype(np.float32)
+        tgt = rng.normal(size=(3, 90, 3)).astype(np.float32)
+        mask = rng.uniform(size=(3, 90)) > 0.3
+        f = jax.vmap(lambda s, t, m: nn_search_pallas(
+            s, t, m, src_block=16, tgt_block=32, interpret=True))
+        idx, d2 = f(jnp.asarray(src), jnp.asarray(tgt), jnp.asarray(mask))
+        for b in range(3):
+            self._check(src[b], tgt[b], mask[b], idx[b], d2[b])
+
+    @pytest.mark.parametrize("n,cap,expect", [
+        (5, 128, 16), (16, 128, 16), (100, 128, 128), (16384, 128, 128),
+        (300, 64, 64)])
+    def test_block_size(self, n, cap, expect):
+        from lidar_slam_arvc_tpu.ops.nn_pallas import block_size
+        assert block_size(n, cap) == expect
+
+
+def test_box_dist2():
+    lo_a = jnp.array([[0.0, 0.0, 0.0], [jnp.inf] * 3])
+    hi_a = jnp.array([[1.0, 1.0, 1.0], [-jnp.inf] * 3])
+    lo_b = jnp.array([[3.0, 0.0, 0.0], [0.5, 0.5, 0.5]])
+    hi_b = jnp.array([[4.0, 1.0, 1.0], [2.0, 2.0, 2.0]])
+    d = np.asarray(_box_dist2(lo_a, hi_a, lo_b, hi_b))
+    np.testing.assert_allclose(d[0], [4.0, 0.0])     # gap 2 in x; overlap
+    assert np.all(d[1] >= 1e12)                      # empty box never near

@@ -123,7 +123,7 @@ class TestPoseGraph:
 
 class TestAssembleOracle:
     def test_dense_H_matches_float64_reference(self):
-        """The TPU-formulated assembly (one-hot MXU matmuls for diagonal
+        """The device-formulated assembly (one-hot matmuls for diagonal
         blocks, single wide-layout block-diagonal expansion, off-diagonal
         scatter) must equal a straightforward float64 numpy assembly of
         J^T W^2 J from the same per-factor residuals/Jacobians."""

@@ -153,26 +153,56 @@ class TestBatched:
         assert out.transform.shape == (B, 4, 4)
 
 
-class TestNNImplDispatch:
-    """Forced Pallas formulations must work off-TPU via interpret mode."""
+class TestKernelPick:
+    """ops.select: the Triton kernels where the program is lowered for a
+    CUDA GPU, the plain XLA sweeps elsewhere, never the interpreter."""
 
-    @pytest.mark.parametrize("impl", ["vpu", "vpu2", "vpu_t", "vpu_tq", "mxu"])
-    def test_forced_impl_runs_on_cpu(self, impl):
+    @staticmethod
+    def _lowered(fn, args, platform):
+        return jax.jit(fn).trace(*args).lower(
+            lowering_platforms=(platform,)).as_text()
+
+    @staticmethod
+    def _pair(n=200):
         rng = np.random.default_rng(1)
-        tgt_pts = rng.uniform(-3, 3, (160, 3)).astype(np.float32)
-        T_gt = synthetic._yaw_T(0.2, 0.1, 0.05)
-        src_pts = (tgt_pts - T_gt[:3, 3]) @ T_gt[:3, :3]  # inv(T_gt) applied
-        ct = cl.from_numpy(tgt_pts, 256)
-        cs = cl.from_numpy(src_pts.astype(np.float32), 256)
-        params = ICPParams(max_correspondence_distance=2.0, max_iterations=4,
-                           src_block=64, tgt_block=64, nn_impl=impl)
-        res = icp(cs, ct, jnp.eye(4, dtype=jnp.float32), params,
-                  "point_to_point")
-        dpos, drot = pose_err(res.transform, T_gt)
-        assert dpos < 0.05 and drot < 0.02
+        pts = rng.uniform(-3, 3, (n, 3)).astype(np.float32)
+        return jnp.asarray(pts), jnp.ones(n, dtype=bool)
 
-    def test_vpu_tq_point_to_plane(self):
-        """The value-returning sweep must feed p2plane GN with real normals."""
+    @pytest.mark.parametrize("platform,kernel_expected",
+                             [("cuda", True), ("cpu", False)])
+    def test_icp_correspondences(self, platform, kernel_expected):
+        pts, mask = self._pair()
+        nrm = jnp.zeros_like(pts)
+        stack = lambda x: jnp.stack([x, x])
+        args = (stack(pts), stack(mask), stack(pts), stack(mask),
+                stack(nrm), stack(jnp.eye(4)))
+        txt = self._lowered(
+            lambda *a: icp_batch(*a, PARAMS, "point_to_plane"), args,
+            platform)
+        assert ('name = "nn_sweep"' in txt) is kernel_expected
+        assert ("xla.gpu.triton" in txt) is kernel_expected
+
+    @pytest.mark.parametrize("platform,kernel_expected",
+                             [("cuda", True), ("cpu", False)])
+    def test_normals(self, platform, kernel_expected):
+        pts, mask = self._pair()
+        txt = self._lowered(
+            lambda p, m: cl.estimate_normals(cl.Cloud(p, m), 0.5).normals,
+            (pts, mask), platform)
+        assert ('name = "ball_moments"' in txt) is kernel_expected
+        assert ("xla.gpu.triton" in txt) is kernel_expected
+
+    def test_cpu_results_are_the_xla_sweep(self):
+        from lidar_slam_arvc_tpu.ops import nearest_neighbors, nn_search
+        pts, mask = self._pair()
+        src = pts[::-1] * 1.01
+        i1, d1 = nearest_neighbors(src, pts, mask, src_block=64,
+                                   tgt_block=64)
+        i2, d2 = nn_search(src, pts, mask, src_block=64, tgt_block=64)
+        np.testing.assert_array_equal(np.asarray(i1), np.asarray(i2))
+        np.testing.assert_array_equal(np.asarray(d1), np.asarray(d2))
+
+    def test_point_to_plane_runs_on_cpu(self):
         rng = np.random.default_rng(2)
         tgt_pts = rng.uniform(-3, 3, (200, 3)).astype(np.float32)
         T_gt = synthetic._yaw_T(0.15, 0.08, 0.04)
@@ -180,7 +210,7 @@ class TestNNImplDispatch:
         ct = cl.estimate_normals(cl.from_numpy(tgt_pts, 256), radius=1.5)
         cs = cl.from_numpy(src_pts.astype(np.float32), 256)
         params = ICPParams(max_correspondence_distance=2.0, max_iterations=6,
-                           src_block=64, tgt_block=64, nn_impl="vpu_tq")
+                           src_block=64, tgt_block=64)
         res = icp(cs, ct, jnp.eye(4, dtype=jnp.float32), params,
                   "point_to_plane")
         dpos, drot = pose_err(res.transform, T_gt)

@@ -184,7 +184,7 @@ class TestUTM:
         df = pd.DataFrame({"latitude": [0.0, 38.0, 0.0], "longitude": [0, 1, 2],
                            "altitude": [0, 1, 2]})
         out = filter_gps(df)
-        assert len(out) == 1 and out["latitude"][0] == 38.0
+        assert len(out["latitude"]) == 1 and out["latitude"][0] == 38.0
 
 
 class TestCSVSchema:

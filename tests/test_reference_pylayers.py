@@ -246,7 +246,7 @@ class TestSamplers:
         assert len(ours_df) == len(golden_df)
         for col in ("x", "y", "z", "qx", "qy", "qz", "qw"):
             np.testing.assert_allclose(
-                ours_df[col].to_numpy(dtype=np.float64),
+                np.asarray(ours_df[col], dtype=np.float64),
                 golden_df[col].to_numpy(dtype=np.float64), atol=0)
 
 
